@@ -1,7 +1,9 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-nvcc compiles every source into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers, so a build takes seconds).
+nvcc compiles every source to an object, one process per source, all
+started together, and links the objects into one shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so a build takes
+seconds).
 The library lands in `_build/` beside this file, under a name that carries a
 hash of the sources and flags: a changed source builds anew, an unchanged one
 is loaded as it is. Nothing is built when the package is imported, only at
@@ -27,7 +29,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 _OUT = os.path.join(_DIR, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-         "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+         "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +41,9 @@ _SIGNATURES = {
                         _U, _U, _U, _U, _F, _F, _F, _F, _F, _F, _I, _I, _I,
                         _P],
     "pt_compact_blocks": [_P, _P, _P, _P, _P, _I, _P],
+    "pt_intersect_spheres": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+    "pt_intersect_tris": [_P, _I, _P, _P, _P, _P, _P, _I, _P],
+    "pt_gather_chunks": [_P, _P, _P, _I, _P, _I, _F, _P, _I, _P],
 }
 
 _lib = None
@@ -78,12 +83,26 @@ def load() -> ctypes.CDLL:
     if not os.path.exists(so):
         os.makedirs(_OUT, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        res = subprocess.run([nvcc_path(), *FLAGS, "-o", tmp, *_sources()],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        build_log = res.stdout + res.stderr
+        nvcc = nvcc_path()
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        logs = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
+        build_log = "".join(log for _, log, _ in logs)
+        failed = [f"{src} ({rc}):\n{log}" for src, log, rc in logs if rc]
+        if not failed:
+            res = subprocess.run([nvcc, *FLAGS, "-shared", "-o", tmp, *objs],
+                                 capture_output=True, text=True)
+            if res.returncode:
+                failed.append(f"link ({res.returncode}):\n{res.stdout}"
+                              f"{res.stderr}")
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():

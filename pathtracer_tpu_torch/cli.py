@@ -1,12 +1,16 @@
 """Command-line harness: `python -m pathtracer_tpu_torch <command> [args]`.
 
-Port of pathtracer_tpu/cli.py for the path-traced scene. shirley-spheres
-takes the JAX CLI's render flags (add_render_args) plus --device, default
-cuda. Without a CUDA device it raises unless `--device cpu` is given.
---interpreter (the A/B oracle) renders with the kernels' plain PyTorch
-versions, which run on CPU tensors only, so it means `--device cpu` and is
-refused with any other device. The progress-bar run and the --no-progress
-run go through the same make_render_fn. The photon-mapped scenes and the
+Port of pathtracer_tpu/cli.py for shirley-spheres and cornell-box.
+shirley-spheres takes the JAX CLI's render flags (add_render_args) plus
+--device, default cuda. Without a CUDA device it raises unless `--device
+cpu` is given. --interpreter (the A/B oracle) renders with the kernels'
+plain PyTorch versions, which run on CPU tensors only, so it means `--device
+cpu` and is refused with any other device. The progress-bar run and the
+--no-progress run go through the same make_render_fn.
+
+cornell-box takes the JAX CLI's PPM flags (add_ppm_args, both -flag and
+--flag spellings) plus --device, with the same CUDA rule; the CPU renders
+with the plain versions. -shard-photon-map (multi-device), ganesha and the
 PLY tool are not ported yet.
 """
 
@@ -25,6 +29,12 @@ def _parse_dimension(s: str):
         return int(w), int(h)
     except ValueError:
         raise argparse.ArgumentTypeError(f"expected WIDTH,HEIGHT, got {s!r}")
+
+
+def _require_cuda_if_asked(device: torch.device) -> None:
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to render on "
+                           "the CPU with the kernels' plain versions")
 
 
 def add_render_args(p: argparse.ArgumentParser) -> None:
@@ -59,9 +69,7 @@ def run_shirley(argv=None) -> None:
     if args.interpreter and device.type != "cpu":
         parser.error("--interpreter runs the kernels' plain versions, which "
                      f"take CPU tensors; it cannot render on {device}")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to render on "
-                           "the CPU with the kernels' plain versions")
+    _require_cuda_if_asked(device)
 
     from .models import shirley
     from .integrator import make_render_fn
@@ -102,6 +110,55 @@ def run_shirley(argv=None) -> None:
     print(f"rendered in: {elapsed_ms:.3f} ms")
 
 
+def add_ppm_args(p: argparse.ArgumentParser) -> None:
+    """The PPM scenes' flags; both -flag and --flag spellings."""
+    p.add_argument("-width", "--width", type=int, default=600, metavar="INT",
+                   help="image width")
+    p.add_argument("-height", "--height", type=int, default=600, metavar="INT",
+                   help="image height")
+    p.add_argument("-iterations", "--iterations", type=int, default=10,
+                   metavar="INT", help="# photon-map iterations")
+    p.add_argument("-photon-count", "--photon-count", type=int, default=75000,
+                   metavar="INT", help="#photons per iteration")
+    p.add_argument("-alpha", "--alpha", type=float, default=2.0 / 3.0,
+                   metavar="FLOAT", help="photon-map alpha in (0,1)")
+    p.add_argument("-o", "--output", default="output.png", metavar="FILE",
+                   help="output file")
+    p.add_argument("-no-progress", "--no-progress", action="store_true",
+                   help="suppress progress monitor")
+    p.add_argument("-max-bounces", "--max-bounces", type=int, default=4,
+                   metavar="INT", help="max ray bounces")
+    p.add_argument("-checkpoint", "--checkpoint", metavar="FILE", default=None,
+                   help="save/resume iteration state (img_sum + counter) "
+                        "to FILE every iteration")
+    p.add_argument("-device", "--device", default="cuda",
+                   help="torch device to render on (default cuda; cpu "
+                        "renders with the kernels' plain versions)")
+
+
+def run_cornell(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        "cornell-box", description="Render the Cornell box by progressive "
+        "photon mapping.")
+    add_ppm_args(parser)
+    args = parser.parse_args(argv)
+    device = torch.device(args.device)
+    _require_cuda_if_asked(device)
+
+    from .models import cornell
+    from .ppm import PPMRenderer
+
+    t0 = time.monotonic()
+    scene, cam, lights = cornell.build(args.width / args.height, device)
+    renderer = PPMRenderer(scene, cam, lights, args.width, args.height,
+                           iterations=args.iterations,
+                           photon_count=args.photon_count, alpha=args.alpha,
+                           max_bounces=args.max_bounces,
+                           verbose=not args.no_progress)
+    renderer.render(output=args.output, checkpoint_path=args.checkpoint)
+    print(f"render time = {(time.monotonic() - t0) * 1e3:.3f} ms")
+
+
 def _not_ported(name: str):
     def run(argv=None) -> None:
         print(f"{name}: not ported to pathtracer_tpu_torch yet; use "
@@ -115,8 +172,8 @@ def main(argv=None) -> None:
     commands = {
         "shirley-spheres": run_shirley,
         "shirley_spheres": run_shirley,
-        "cornell-box": _not_ported("cornell-box"),
-        "cornell_box": _not_ported("cornell-box"),
+        "cornell-box": run_cornell,
+        "cornell_box": run_cornell,
         "ganesha": _not_ported("ganesha"),
         "ply-describe": _not_ported("ply-describe"),
         "ply_describe": _not_ported("ply-describe"),

@@ -1,6 +1,8 @@
-"""Bounce-synchronous wavefront path tracer for sphere scenes.
+"""Bounce-synchronous wavefront path tracer for sphere scenes, and the
+composite sphere + triangle intersector of the photon mapper.
 
-Port of pathtracer_tpu/integrator.py: the tiled pass (make_pass_fn's
+Port of pathtracer_tpu/integrator.py: make_intersector (without the mesh
+branch and the onehot select), the tiled pass (make_pass_fn's
 32x32-tile-major ray order), the kernel wavefront (_trace_pallas2), the
 bounce-0 per-tile sphere lists (tile_sphere_lists, a numpy copy) and the
 render driver (make_render_fn). Sampling follows the JAX package:
@@ -30,16 +32,108 @@ import torch
 
 from . import film
 from .camera import Camera
+from .ops import vec
 from .ops.cuda import compact_kernel as ck
 from .ops.cuda import fused_bounce_kernel as fbk
 from .ops.cuda.shade_kernel import pack_material_tables
-from .ops.cuda.sphere_kernel import LANES, LIST_UNROLL, pack_spheres
+from .ops.cuda.sphere_kernel import (LANES, LIST_UNROLL, intersect_spheres,
+                                     pack_spheres)
+from .ops.cuda.tri_kernel import intersect_tris, pack_tris
 from .ops.frustum import tile_frustum_planes
 from .ops.lds import M32, Sampler
-from .scene import Scene
+from .ops.spheres import stable_t
+from .ops.triangles import mt_single
+from .scene import (TRI_A, TRI_E1, TRI_E2, TRI_MAT, TRI_TEX, Scene,
+                    eval_texture)
 
-__all__ = ["TILE", "tile_sphere_lists", "initial_state", "trace_wavefront",
-           "Renderer", "make_render_fn"]
+__all__ = ["make_intersector", "TILE", "tile_sphere_lists", "initial_state",
+           "trace_wavefront", "Renderer", "make_render_fn"]
+
+_f32 = lambda x: float(np.float32(x))
+_PI = _f32(np.pi)
+_TWO_PI_INV = _f32(0.5 / np.pi)
+_PI_INV = _f32(1.0 / np.pi)
+
+
+def make_intersector(scene: Scene):
+    """Build hit_setup(org, d, alive) -> dict of per-lane hit attributes
+    over both pools of a mixed scene: the nearest sphere
+    (intersect_spheres) and the nearest triangle (intersect_tris), the
+    nearer of the two, and every shading input (point, flipped normal,
+    uv, material columns) by masked selects. org, d (N, 3) f32 with N a
+    multiple of 1024; alive (N,) bool drives the kernels' block early exit.
+    Returns dict(hit, t, point, normal, hit_front, albedo, mat_kind, ior,
+    ior_inv). The uv of a sphere hit uses torch.acos / torch.atan2, the
+    library functions of the JAX code (not the polynomials of the path
+    tracer's kernel)."""
+    sph_table = pack_spheres(scene.center, scene.radius, scene.valid)
+    has_tris = scene.tri_count > 0
+    if has_tris:
+        tp = scene.tri_pack
+        tri_table = pack_tris(tp[:, TRI_A], tp[:, TRI_E1], tp[:, TRI_E2],
+                              scene.tri_valid)
+
+    def hit_setup(org, d, alive):
+        at, idx_s, hit_s, inv_a = intersect_spheres(sph_table, org, d, alive)
+        pk_rows = scene.shade_pack[idx_s.long()]
+        # stable per-ray t from the winner's parameters
+        r_h = pk_rows[:, 3]
+        t_s = stable_t(pk_rows[:, 0:3], r_h * r_h, org, d, vec.quadrance(d),
+                       inv_a)
+        if has_tris:
+            t_t, idx_t, hit_t = intersect_tris(tri_table, org, d, alive)
+            tri_rows = scene.tri_pack[idx_t.long()]
+            use_tri = hit_t & (~hit_s | (t_t < t_s))
+            hit = hit_s | hit_t
+        else:
+            use_tri = torch.zeros_like(hit_s)
+            hit = hit_s
+
+        point_s = org + t_s[:, None] * d
+        n_s = vec.normalize(point_s - pk_rows[:, 0:3])
+        if has_tris:
+            a, e1, e2 = tri_rows[:, TRI_A], tri_rows[:, TRI_E1], \
+                tri_rows[:, TRI_E2]
+            _, u_b, v_b = mt_single(a, e1, e2, org, d)
+            # the hit point is the barycentric combination, not o + t*d
+            point_t = a + u_b[:, None] * e1 + v_b[:, None] * e2
+            n_t = vec.normalize(vec.cross(e1, e2))
+            point = vec.where3(use_tri, point_t, point_s)
+            g_normal = vec.where3(use_tri, n_t, n_s)
+            t = torch.where(use_tri, t_t, t_s)
+        else:
+            point, g_normal, t = point_s, n_s, t_s
+
+        hit_front = vec.dot(d, g_normal) < 0.0
+        normal = vec.where3(hit_front, g_normal, -g_normal)
+
+        # sphere uv from the flipped normal
+        ny = torch.clamp(normal[:, 1], -1.0, 1.0)
+        theta = torch.acos(-ny)
+        phi = _PI + torch.atan2(-normal[:, 2], normal[:, 0])
+        u_tex = phi * _TWO_PI_INV
+        v_tex = theta * _PI_INV
+        mat_rows = pk_rows[:, 4:16]
+        if has_tris:
+            # triangle uv: barycentric interpolation of the tex coords
+            tx = tri_rows[:, TRI_TEX]
+            w_b = 1.0 - u_b - v_b
+            tri_u = tx[:, 0] * w_b + tx[:, 2] * u_b + tx[:, 4] * v_b
+            tri_v = tx[:, 1] * w_b + tx[:, 3] * u_b + tx[:, 5] * v_b
+            u_tex = torch.where(use_tri, tri_u, u_tex)
+            v_tex = torch.where(use_tri, tri_v, v_tex)
+            mat_rows = torch.where(use_tri[:, None], tri_rows[:, TRI_MAT],
+                                   mat_rows)
+
+        albedo = eval_texture(mat_rows[:, 1], mat_rows[:, 2:5],
+                              mat_rows[:, 5:8], mat_rows[:, 8],
+                              mat_rows[:, 9], u_tex, v_tex)
+        return dict(hit=hit, t=t, point=point, normal=normal,
+                    hit_front=hit_front, albedo=albedo,
+                    mat_kind=mat_rows[:, 0], ior=mat_rows[:, 10],
+                    ior_inv=mat_rows[:, 11])
+
+    return hit_setup
 
 TILE = 32  # pixels per side of an image tile in tiled ray order
 

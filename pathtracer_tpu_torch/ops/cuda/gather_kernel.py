@@ -1,0 +1,248 @@
+"""PPM cone-filter photon gather over per-block lists of photon chunks.
+
+Port of the adaptive chunk gather of pathtracer_tpu/ops/pallas/gather_kernel.py
+(morton3, build_photon_chunks, block_chunk_lists, hit_morton_keys,
+gather_flux_chunks_pallas). `gather_flux_chunks` launches the CUDA kernel
+csrc/gather_chunks.cu for CUDA tensors; `gather_flux_chunks_plain` is the
+same function in plain PyTorch, which `gather_flux_chunks` runs for CPU
+tensors and which the tests and chip_smoke.py hold the kernel against. The
+sorts and the candidate filter around it are torch glue, as the JAX package
+runs them in XLA.
+
+Photons are sorted by a 30-bit Morton code over their own bbox and cut into
+128-photon chunks of four 32-photon sub-chunks, each with an exact f32 bbox.
+Eye hits come sorted by their own Morton code, so each 1024-hit block is
+spatially compact; per block, block_chunk_lists keeps the chunks with a
+sub-chunk whose bbox meets the block's hit bbox grown by r, packed as
+`chunk | sub_mask << 24`. The gather walks that list: for each listed chunk,
+each sub-chunk whose mask bit is set, each photon in order, a lane adds
+(1 - d/r) * flux where d^2 < r^2 and n . n_p > 1e-3. The per-photon test is
+the exact one; the boxes only skip photons that add an exact zero.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ... import _build
+from .. import vec
+
+__all__ = ["morton3", "build_photon_chunks", "block_chunk_lists",
+           "hit_morton_keys", "gather_flux_chunks", "gather_flux_chunks_plain"]
+
+BIG = float(np.float32(3.0e38))
+BLOCK = 1024  # eye hits per block (one CTA of the kernel)
+CHB = 128  # photons per chunk
+SUB = 32  # photons per bbox sub-chunk
+N_SUBS = CHB // SUB
+MASK_SHIFT = 24  # list word = chunk | sub_mask << 24
+N_PLANES = 16  # photons_t planes: pos3, nrm3, flux3, pad
+_M32 = 0xFFFFFFFF
+# blocks per step of the plain version: bounds its (blocks, 1024, 128)
+# temporaries to 4 MB each
+PLAIN_BLOCKS = 8
+
+
+def morton3(cx, cy, cz) -> torch.Tensor:
+    """Interleave three 10-bit ints (x lowest) into an int32 key."""
+    def expand(v):
+        v = v.to(torch.int64) & _M32
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        return (v | (v << 2)) & 0x09249249
+    key = expand(cx) | (expand(cy) << 1) | (expand(cz) << 2)
+    return (key & _M32).to(torch.int32)
+
+
+def _cells(p, valid):
+    """10-bit Morton cells per axis of points p (N, 3) over the bbox of the
+    `valid` ones. Rows that are not valid cast garbage (the float->int cast
+    of an out-of-range value differs between XLA and torch); callers mask
+    them after the cast, as the JAX code does."""
+    vm = valid[:, None]
+    lo = torch.amin(torch.where(vm, p, BIG), dim=0)
+    hi = torch.amax(torch.where(vm, p, -BIG), dim=0)
+    ext = torch.clamp(hi - lo, min=float(np.float32(1e-9)))
+    c = ((p - lo[None, :]) / ext[None, :] * 1024.0).to(torch.int32)
+    return torch.clamp(c, 0, 1023)
+
+
+def hit_morton_keys(point, active) -> torch.Tensor:
+    """30-bit Morton key of each hit over the active hits' bbox, the
+    block-coherence sort key of the gather (inactive hits last)."""
+    c = _cells(point, active)
+    key = morton3(c[:, 0], c[:, 1], c[:, 2])
+    return torch.where(active, key, 1 << 30)
+
+
+def build_photon_chunks(pos, nrm, flux, valid):
+    """Sort the deposits by Morton code (valid first, stable) and build the
+    chunk tables. pos/nrm/flux (Np, 3) f32, valid (Np,) bool. Returns
+      photons_t (16, Np_pad) f32 [pos3, nrm3, flux3, pad], Np_pad =
+                ceil(Np / 128) * 128; deposits that are not valid carry BIG
+                positions (their normals and fluxes go in unmasked), the
+                padding columns BIG everywhere;
+      sbox (6, Np_pad / 32) f32 [lo3, hi3] of each sub-chunk's valid
+                photons; an empty sub-chunk's box is inverted (lo = BIG,
+                hi = -BIG) and overlaps nothing."""
+    npho = pos.shape[0]
+    c = _cells(pos, valid)
+    key = torch.where(valid, morton3(c[:, 0], c[:, 1], c[:, 2]), 1 << 30)
+    order = torch.argsort(key, stable=True)
+    posm = torch.where(valid[:, None], pos, BIG)
+    planes = torch.cat([posm.T, nrm.T, flux.T,
+                        valid.to(torch.float32)[None]])[:, order]
+    np_pad = -(-npho // CHB) * CHB
+    dev = pos.device
+    tbl = torch.full((N_PLANES, np_pad), BIG, dtype=torch.float32, device=dev)
+    tbl[0:9, :npho] = planes[0:9]
+    vs = planes[9] > 0.5
+    pad = np_pad - npho
+    pv_lo = torch.cat([planes[0:3], torch.full((3, pad), BIG, device=dev)], 1)
+    pv_hi = torch.cat([torch.where(vs, planes[0:3], -BIG),
+                       torch.full((3, pad), -BIG, device=dev)], 1)
+    n_sub = np_pad // SUB
+    s_lo = torch.amin(pv_lo.reshape(3, n_sub, SUB), dim=2)
+    s_hi = torch.amax(pv_hi.reshape(3, n_sub, SUB), dim=2)
+    return tbl, torch.cat([s_lo, s_hi])
+
+
+def _radius_f32(radius):
+    """The gather's float32 radius terms (r, 1/r, r^2, r padded), rounded as
+    the JAX code rounds them in float32."""
+    r = np.float32(radius)
+    return (r, np.float32(1.0) / r, r * r,
+            r * np.float32(1.000002) + np.float32(1e-30))
+
+
+def block_chunk_lists(point, active, sbox, radius):
+    """Candidate filter: per 1024-hit block, the ascending list of the
+    chunks with a sub-chunk whose box meets the block's active-hit bbox
+    grown by the (padded) radius, each packed with its 4-bit sub mask.
+    point (n, 3) Morton-sorted, n % 1024 == 0. Returns (lists (nblk, C)
+    int32, counts (nblk,) int32), C = the number of chunks; entries past a
+    block's count are the dead chunks, in chunk order."""
+    n = point.shape[0]
+    nblk = n // BLOCK
+    n_sub = sbox.shape[1]
+    n_chunks = n_sub // N_SUBS
+    r_pad = float(_radius_f32(radius)[3])
+    pr = point.reshape(nblk, BLOCK, 3)
+    am = active.reshape(nblk, BLOCK, 1)
+    blo = torch.amin(torch.where(am, pr, BIG), dim=1) - r_pad
+    bhi = torch.amax(torch.where(am, pr, -BIG), dim=1) + r_pad
+    ov = am[:, :, 0].any(dim=1)[:, None].expand(nblk, n_sub)
+    for ax in range(3):
+        ov = ov & (sbox[3 + ax][None, :] >= blo[:, ax:ax + 1]) \
+            & (sbox[ax][None, :] <= bhi[:, ax:ax + 1])
+    bits = 1 << torch.arange(N_SUBS, dtype=torch.int32, device=point.device)
+    mask = torch.where(ov.reshape(nblk, n_chunks, N_SUBS), bits, 0).sum(
+        dim=2, dtype=torch.int32)
+    live = mask > 0
+    ci = torch.arange(n_chunks, dtype=torch.int32, device=point.device)
+    words = ci[None, :] | (mask << MASK_SHIFT)
+    key = torch.where(live, ci[None, :], 1 << 30)
+    order = torch.sort(key, dim=1, stable=True).indices
+    return (torch.gather(words, 1, order),
+            live.sum(dim=1, dtype=torch.int32))
+
+
+def gather_flux_chunks_plain(point, normal, active, sbox, photons_t, radius):
+    """Plain PyTorch version of gather_flux_chunks. Every lane sums its
+    photons in the kernel's order (list position, then sub-chunk, then
+    photon), vectorised over the lanes of PLAIN_BLOCKS blocks at a time; a
+    block whose list has ended or whose sub bit is clear adds nothing. That
+    takes (longest list x 128) sequential adds per step of blocks."""
+    n = point.shape[0]
+    nblk = n // BLOCK
+    lists, counts = block_chunk_lists(point, active, sbox, radius)
+    _, inv_r, r2, _ = _radius_f32(radius)
+    inv_r, r2 = float(inv_r), float(r2)
+    ndot_min = float(np.float32(1e-3))
+    dev = point.device
+    acc = torch.zeros(nblk, BLOCK, 3, dtype=torch.float32, device=dev)
+    pts = point.reshape(nblk, BLOCK, 3)
+    nrms = normal.reshape(nblk, BLOCK, 3)
+    j128 = torch.arange(CHB, device=dev)
+    sub_t = torch.arange(N_SUBS, device=dev)
+    for b0 in range(0, nblk, PLAIN_BLOCKS):
+        bs = slice(b0, min(nblk, b0 + PLAIN_BLOCKS))
+        cnt = counts[bs].to(torch.int64)
+        x, y, z = (pts[bs, :, c, None] for c in range(3))
+        nx, ny, nz = (nrms[bs, :, c, None] for c in range(3))
+        a = acc[bs]
+        for k in range(int(cnt.max()) if cnt.numel() else 0):
+            word = lists[bs, k].to(torch.int64) & _M32
+            ci = word & ((1 << MASK_SHIFT) - 1)
+            sub_on = (cnt > k)[:, None] & (((word >> MASK_SHIFT)[:, None]
+                                            >> sub_t) & 1).bool()
+            ph = photons_t[0:9][:, ci[:, None] * CHB + j128]  # (9, b, 128)
+            p = [ph[c][:, None, :] for c in range(9)]
+            dx, dy, dz = p[0] - x, p[1] - y, p[2] - z
+            d2 = dx * dx + dy * dy + dz * dz
+            ndot = p[3] * nx + p[4] * ny + p[5] * nz
+            ok = (d2 < r2) & (ndot > ndot_min)
+            wf = torch.where(ok, 1.0 - vec.sqrt(d2) * inv_r, 0.0)
+            on = sub_on.repeat_interleave(SUB, dim=1)[:, None, :]
+            contrib = torch.stack(
+                [torch.where(on, wf * p[6 + c], 0.0) for c in range(3)], -1)
+            for t in torch.nonzero(sub_on.any(dim=0)).flatten().tolist():
+                for j in range(t * SUB, (t + 1) * SUB):
+                    a = a + contrib[:, :, j]
+        acc[bs] = a
+    return torch.where(active[:, None], acc.reshape(n, 3), 0.0)
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(f"gather_flux_chunks: {what}")
+
+
+def gather_flux_chunks(point, normal, active, sbox, photons_t, radius):
+    """Cone-filter gather for n eye hits (n % 1024 == 0, sorted by
+    hit_morton_keys so blocks are compact). point/normal (n, 3) f32; active
+    (n,) bool; sbox, photons_t from build_photon_chunks; radius a float.
+    Returns flux (n, 3) f32; inactive lanes get zero.
+
+    CPU tensors run gather_flux_chunks_plain; CUDA tensors build the chunk
+    lists in torch and launch csrc/gather_chunks.cu (counted in
+    `gather_flux_chunks.launches`); anything else raises."""
+    if point.device.type == "cpu":
+        return gather_flux_chunks_plain(point, normal, active, sbox,
+                                        photons_t, radius)
+    _require(point.device.type == "cuda", f"no kernel for {point.device}")
+    n = point.shape[0]
+    n_sub = sbox.shape[1] if sbox.dim() == 2 else 0
+    for name, t, dtype, shape in (
+            ("point", point, torch.float32, (n, 3)),
+            ("normal", normal, torch.float32, (n, 3)),
+            ("active", active, torch.bool, (n,)),
+            ("sbox", sbox, torch.float32, (6, n_sub)),
+            ("photons_t", photons_t, torch.float32, (N_PLANES, n_sub * SUB))):
+        _require(t.device == point.device, f"{name} on {t.device}, point on "
+                 f"{point.device}")
+        _require(t.dtype == dtype, f"{name} dtype {t.dtype}, want {dtype}")
+        _require(tuple(t.shape) == shape,
+                 f"{name} shape {tuple(t.shape)}, want {shape}")
+        _require(t.is_contiguous(), f"{name} is not contiguous")
+    _require(n % BLOCK == 0 and n > 0 and n_sub % N_SUBS == 0 and n_sub > 0,
+             f"want n % {BLOCK} == 0 and whole chunks; got n = {n}, "
+             f"{n_sub} sub-chunks")
+    lists, counts = block_chunk_lists(point, active, sbox, radius)
+    hits = torch.cat([point.T, normal.T,
+                      active.to(torch.float32)[None]]).contiguous()
+    out = torch.empty(3, n, dtype=torch.float32, device=point.device)
+    lib = _build.load()
+    err = lib.pt_gather_chunks(
+        hits.data_ptr(), lists.data_ptr(), counts.data_ptr(), lists.shape[1],
+        photons_t.data_ptr(), photons_t.shape[1],
+        float(_radius_f32(radius)[0]), out.data_ptr(), n,
+        torch.cuda.current_stream(point.device).cuda_stream)
+    _build.check(lib, err, "gather_flux_chunks")
+    gather_flux_chunks.launches += 1
+    return out.T
+
+
+gather_flux_chunks.launches = 0

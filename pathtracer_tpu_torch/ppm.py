@@ -1,0 +1,449 @@
+"""Progressive photon mapping on one device.
+
+Port of pathtracer_tpu/ppm.py's single-device kernel tier: the lights and
+their photon budgets, the photon pass (make_photon_pass), the eye pass with
+the chunk gather (make_eye_pass with use_kernel=True) and the iteration
+loop (PPMRenderer). Each iteration runs
+
+  1. the photon pass: emission, then max_bounces bounces of the composite
+     intersector (integrator.make_intersector) and the scatter, with a
+     fixed deposit slot per (bounce, lane) and Russian roulette by the
+     albedo's largest component;
+  2. gather_kernel.build_photon_chunks over the deposits;
+  3. the eye pass over the whole image as one band: the specular walk,
+     recording each lane's first diffuse hit;
+  4. the hit Morton sort and block_chunk_lists;
+  5. the gather kernel, then `finish` (cone-filter normalizer 1 - 2/3, the
+     disk area and 1/photon_count);
+  6. the film sum in float64 on the device, rows flipped to output order.
+
+Sampling is the JAX package's, a pure function of (iteration, offset): the
+photon sampler has D = 2 + 2*max_bounces and offsets lane +
+iteration*photon_count; the eye sampler has D = 2 + max_bounces (one
+dimension per eye bounce) and offsets pixel + iteration*W*H. So the photon
+pass runs as one call over all lanes, and checkpoint/resume is exact.
+The radius schedule is r^2(i) = init * (1/i) * prod_{k<i} (k+alpha)/k with
+init = ((bbox extent sum)/3 / ((W+H)/2))^2. The averaged image is written at
+gamma 1/2.2 after every iteration.
+
+Not ported: the XLA hash-grid gather (the plain chunk gather covers the
+CPU), the eye-walk compaction ladder (mesh scenes only), the sharded and
+ring photon maps, phase_cb and the environment knobs of the JAX renderer.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+import torch
+
+from .camera import Camera
+from .integrator import make_intersector
+from .io.png import write_png
+from .ops import quat as quat_ops
+from .ops import shading, vec
+from .ops.cuda import gather_kernel as gk
+from .ops.lds import M32, Sampler
+from .scene import TRI_MAT, Scene
+
+__all__ = ["Light", "light_photon_counts", "make_photon_pass",
+           "scene_all_diffuse", "make_eye_pass", "PPMRenderer"]
+
+_SPOT_ANGLE = 0.5 * 45.0 * math.pi / 180.0
+_SPOT_DISK_RADIUS = math.atan(_SPOT_ANGLE)  # as the reference writes it
+_f32 = lambda x: float(np.float32(x))
+_PI = _f32(np.pi)
+_TWO_PI = _f32(2.0 * np.float32(np.pi))
+
+
+@dataclass
+class Light:
+    kind: str  # "point" | "spot"
+    position: np.ndarray  # camera space
+    color: np.ndarray  # power-scaled color
+    quat: np.ndarray = None  # spot: rotation of shader space (normal -> +z)
+
+    @staticmethod
+    def point(position, power, color=(1.0, 1.0, 1.0)) -> "Light":
+        return Light("point", np.asarray(position, np.float64),
+                     np.asarray(color, np.float64) * power)
+
+    @staticmethod
+    def spot(position, direction, power, color=(1.0, 1.0, 1.0)) -> "Light":
+        d = np.asarray(direction, np.float64)
+        d = d / np.linalg.norm(d)
+        x, y, z = d  # the shader-space quaternion of d, host side
+        if z > 1.0 - 1e-9:
+            q = np.array([1.0, 0.0, 0.0, 0.0])
+        elif z < 1e-9 - 1.0:
+            q = np.array([0.0, 0.0, 1.0, 0.0])
+        else:
+            q = np.array([1.0 + z, y, -x, 0.0])
+            q = q / np.linalg.norm(q)
+        return Light("spot", np.asarray(position, np.float64),
+                     np.asarray(color, np.float64) * power, q)
+
+    @property
+    def power(self) -> float:
+        return float(self.color.sum())
+
+
+def light_photon_counts(lights: List[Light], photon_count: int):
+    """Per-light photon budgets, truncated: (counts, starts, total)."""
+    total = sum(l.power for l in lights)
+    counts, starts, off = [], [], 0
+    for l in lights:
+        c = int(photon_count * (l.power / total))
+        starts.append(off)
+        counts.append(c)
+        off += c
+    return counts, starts, off
+
+
+def _emit_rays(lights, counts, starts, lane_ids, u, v):
+    """Light emission per lane, the light picked by the lane's index range.
+    Returns (org, d, flux), each (n, 3) f32."""
+    n = lane_ids.shape[0]
+    dev = u.device
+    const = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    org = torch.zeros(n, 3, device=dev)
+    d = torch.zeros(n, 3, device=dev)
+    flux = torch.zeros(n, 3, device=dev)
+    for l, c, s in zip(lights, counts, starts):
+        mask = (lane_ids >= s) & (lane_ids < s + c)
+        if l.kind == "point":  # uniform sphere
+            theta = _TWO_PI * u
+            phi = torch.acos(1.0 - 2.0 * v)
+            sp = torch.sin(phi)
+            dl = vec.v3(sp * torch.cos(theta), sp * torch.sin(theta),
+                        torch.cos(phi))
+            ol = const(l.position).expand(n, 3)
+        else:  # spot: disk-cone through the shader-space world ray
+            r = _f32(_SPOT_DISK_RADIUS) * vec.sqrt(u)
+            theta = v * 2.0 * _PI
+            local = vec.v3(r * torch.cos(theta), r * torch.sin(theta),
+                           torch.ones_like(u))
+            dl = quat_ops.rotate_inv(const(l.quat).expand(n, 4), local)
+            ol = const(l.position) + _f32(1e-3) * dl
+        org = vec.where3(mask, ol, org)
+        d = vec.where3(mask, dl, d)
+        flux = vec.where3(mask, const(l.color).expand(n, 3), flux)
+    return org, d, flux
+
+
+def _specular(h, omega_i, u):
+    """The metal and dielectric scatter shared by both passes: (wo_met,
+    met_ok, tint, wo_die) in the local frame."""
+    wi_z = omega_i[:, 2]
+    albedo = h["albedo"]
+    wo_met = shading.reflect_local(omega_i)
+    met_ok = wo_met[:, 2] > 0.0
+    tint = albedo + (1.0 - albedo) * shading.pow5(1.0 - wi_z)[:, None]
+    ci = torch.clamp(wi_z, 0.0, 1.0)
+    si = vec.sqrt(1.0 - ci * ci)
+    ratio = torch.where(h["hit_front"], h["ior_inv"], h["ior"])
+    refl = (ratio * si > 1.0) | (shading.schlick(ci, ratio) > u)
+    wo_die = vec.where3(refl, wo_met, shading.refract_local(omega_i, ratio))
+    return wo_met, met_ok, tint, wo_die
+
+
+def make_photon_pass(scene: Scene, lights, photon_count: int,
+                     max_bounces: int):
+    """Build trace_photons(offset_base: int) -> (pos, nrm, flux, valid,
+    segments): deposits of shape (lanes * max_bounces, .) in (bounce, lane)
+    order, and the ray segments traced (a 0-dim tensor);
+    trace_photons.emit(offset_base) gives the bounce-0 rays. Returns
+    (trace_photons, photons traced, deposit rows)."""
+    sampler = Sampler(2 + 2 * max_bounces)
+    counts, starts, total = light_photon_counts(lights, photon_count)
+    lanes = -(-total // 1024) * 1024
+    dev = scene.center.device
+    lane_ids = torch.arange(lanes, dtype=torch.int64, device=dev)
+    hit_setup = make_intersector(scene)
+
+    def emit(offset_base: int):
+        """Bounce-0 photon rays: (offs, org, d, flux, alive)."""
+        offs = (lane_ids + int(offset_base)) & M32
+        org, d, flux = _emit_rays(lights, counts, starts, lane_ids,
+                                  sampler.get(offs, 0), sampler.get(offs, 1))
+        return offs, org, d, flux, lane_ids < total
+
+    def trace_photons(offset_base: int):
+        offs, org, d, flux, alive = emit(offset_base)
+        segments = torch.zeros((), dtype=torch.int64, device=dev)
+        deposits = []
+        for b in range(max_bounces):
+            segments += alive.sum()
+            u = sampler.get(offs, 2 + 2 * b)
+            v = sampler.get(offs, 3 + 2 * b)
+            h = hit_setup(org, d, alive)
+            hit = h["hit"] & alive
+            q = shading.shader_quat(h["normal"])
+            omega_i = quat_ops.rotate(q, -d)
+            albedo = h["albedo"]
+            is_diff = h["mat_kind"] == 0
+            is_met = h["mat_kind"] == 1
+
+            # diffuse deposit (the flux takes the albedo first)
+            f_dep = flux * albedo
+            deposits.append((h["point"], h["normal"], f_dep, hit & is_diff))
+
+            wo_met, met_ok, tint, wo_die = _specular(h, omega_i, u)
+            # diffuse Russian roulette
+            cmax = torch.amax(albedo, dim=-1)
+            rr = u <= cmax
+            cm_inv = 1.0 / cmax
+            wo_dif = shading.cosine_hemisphere(u * cm_inv, v)
+            f_dif = f_dep * cm_inv[:, None]
+
+            wo = vec.where3(is_diff, wo_dif,
+                            vec.where3(is_met, wo_met, wo_die))
+            f_new = vec.where3(is_diff, f_dif,
+                               vec.where3(is_met, flux * tint, flux))
+            ok = torch.where(is_diff, rr, torch.where(is_met, met_ok, True))
+
+            dir_world = quat_ops.rotate_inv(q, wo)
+            new_org = shading.world_ray(h["point"], dir_world)
+            alive = hit & ok
+            org = vec.where3(alive, new_org, org)
+            d = vec.where3(alive, dir_world, d)
+            flux = vec.where3(alive, f_new, flux)
+        pos, nrm, fl, valid = (torch.stack(x) for x in zip(*deposits))
+        return (pos.reshape(-1, 3), nrm.reshape(-1, 3), fl.reshape(-1, 3),
+                valid.reshape(-1), segments)
+
+    trace_photons.emit = emit
+    return trace_photons, total, lanes * max_bounces
+
+
+def scene_all_diffuse(scene: Scene) -> bool:
+    """True when no valid primitive has a specular (metal/dielectric)
+    material: then every eye path ends at its first hit."""
+    if bool((scene.mat_kind[scene.valid] != 0).any()):
+        return False
+    if scene.tri_count:
+        mk = scene.tri_pack[scene.tri_valid][:, TRI_MAT.start]
+        if bool((mk != 0).any()):
+            return False
+    return True
+
+
+def make_eye_pass(camera: Camera, width: int, height: int,
+                  max_bounces: int, photon_count: int, scene: Scene,
+                  eff_bounces: int = None):
+    """Build eye_pass(offset_base: int, radius: float, grid) -> the
+    iteration's image contribution (H, W, 3) f32, rows in camera order
+    (not flipped), scaled by 1/photon_count; grid = (photons_t, sbox) from
+    build_photon_chunks. The whole image is one band of ceil(W*H/1024)*1024
+    lanes (lane = y*W + x).
+
+    eff_bounces caps the specular walk: in a scene with no specular
+    material every eye path ends at its first hit; the sampler keeps
+    max_bounces dimensions either way. eye_pass.primary, .walk, .gather and
+    .finish are the stages, for tests and measurement."""
+    sampler = Sampler(2 + max_bounces)
+    eff_bounces = max_bounces if eff_bounces is None else eff_bounces
+    n_pix = width * height
+    lanes = -(-n_pix // 1024) * 1024
+    dev = scene.center.device
+    lane_ids = torch.arange(lanes, dtype=torch.int64, device=dev)
+    xs = (lane_ids % width).to(torch.float32)
+    ys = (lane_ids // width).to(torch.float32)
+    alive0 = (lane_ids < n_pix) & ((lane_ids // width) < height)
+    inv_w, inv_h = _f32(1.0 / width), _f32(1.0 / height)
+    inv_pc = _f32(1.0 / photon_count)
+    normalizer = np.float32(1.0 - 2.0 / 3.0)
+    hit_setup = make_intersector(scene)
+
+    def primary(offset_base: int):
+        """Bounce-0 eye rays: (offs, org, d, alive). Eye rays are not
+        flipped; the image is."""
+        offs = (lane_ids + int(offset_base)) & M32
+        cx = (xs + sampler.get(offs, 0)) * inv_w
+        cy = (ys + sampler.get(offs, 1)) * inv_h
+        d = camera.ray_dirs(cx, cy)
+        return offs, torch.zeros_like(d), d, alive0
+
+    def walk(offset_base: int):
+        """The specular walk: (fd_pt, fd_nrm, fd_beta, fd_ok), each lane's
+        first diffuse hit."""
+        offs, org, d, alive = primary(offset_base)
+        beta = torch.ones_like(d)
+        fd_pt = torch.zeros_like(d)
+        fd_nrm = torch.zeros_like(d)
+        fd_beta = torch.zeros_like(d)
+        fd_ok = torch.zeros_like(alive0)
+        for b in range(eff_bounces):
+            u = sampler.get(offs, 2 + b)  # one dimension per eye bounce
+            h = hit_setup(org, d, alive)
+            hit = h["hit"] & alive
+            q = shading.shader_quat(h["normal"])
+            omega_i = quat_ops.rotate(q, -d)
+            albedo = h["albedo"]
+            is_diff = h["mat_kind"] == 0
+            is_met = h["mat_kind"] == 1
+
+            # diffuse: record and stop (a lane gets here at most once)
+            take = hit & is_diff
+            fd_pt = vec.where3(take, h["point"], fd_pt)
+            fd_nrm = vec.where3(take, h["normal"], fd_nrm)
+            fd_beta = vec.where3(take, beta * albedo, fd_beta)
+            fd_ok = fd_ok | take
+
+            # specular continuation
+            wo_met, met_ok, tint, wo_die = _specular(h, omega_i, u)
+            wo = vec.where3(is_met, wo_met, wo_die)
+            beta_new = vec.where3(is_met, beta * tint, beta)
+            ok = torch.where(is_met, met_ok, ~is_diff)
+
+            dir_world = quat_ops.rotate_inv(q, wo)
+            new_org = shading.world_ray(h["point"], dir_world)
+            alive = hit & ok
+            org = vec.where3(alive, new_org, org)
+            d = vec.where3(alive, dir_world, d)
+            beta = vec.where3(alive, beta_new, beta)
+        return fd_pt, fd_nrm, fd_beta, fd_ok
+
+    def gather(point, normal, active, radius: float, grid):
+        """Morton-sort the hits, gather each one's photon flux, unsort."""
+        photons_t, sbox = grid
+        perm = torch.argsort(gk.hit_morton_keys(point, active), stable=True)
+        inv_perm = torch.empty_like(perm)
+        inv_perm[perm] = torch.arange(perm.shape[0], device=dev)
+        flux = gk.gather_flux_chunks(point[perm], normal[perm], active[perm],
+                                     sbox, photons_t, radius)
+        return flux[inv_perm]
+
+    def finish(fd_beta, fd_ok, flux, radius: float):
+        r = np.float32(radius)
+        # a device tensor, so the division is elementwise on every device
+        # (torch on CUDA multiplies by the reciprocal of a host scalar)
+        denom = torch.tensor(np.float32(np.pi) * r * r * normalizer,
+                             device=dev)
+        contrib = fd_beta * flux / denom
+        result = vec.where3(fd_ok, contrib, torch.zeros_like(contrib))
+        return (result * inv_pc)[:n_pix].reshape(height, width, 3)
+
+    def eye_pass(offset_base: int, radius: float, grid):
+        fd_pt, fd_nrm, fd_beta, fd_ok = walk(offset_base)
+        flux = gather(fd_pt, fd_nrm, fd_ok, radius, grid)
+        return finish(fd_beta, fd_ok, flux, radius)
+
+    eye_pass.primary, eye_pass.walk = primary, walk
+    eye_pass.gather, eye_pass.finish = gather, finish
+    return eye_pass
+
+
+@dataclass
+class PPMRenderer:
+    """The iteration loop. render() returns the sum of the iterations'
+    images, (H, W, 3) float64 on the scene's device; divide by the
+    iteration count for the averaged linear image."""
+
+    scene: Scene
+    camera: Camera
+    lights: List[Light]
+    width: int
+    height: int
+    iterations: int = 10
+    photon_count: int = 75000
+    alpha: float = 2.0 / 3.0
+    max_bounces: int = 4
+    verbose: bool = True
+
+    def __post_init__(self):
+        lo, hi = self.scene.bbox()
+        a = float((hi - lo).sum()) / 3.0
+        b = (self.width + self.height) / 2.0
+        self.init_radius2 = (a / b) ** 2
+
+    def radius(self, i: int) -> float:
+        """The gather radius of iteration i (1-based)."""
+        assert i >= 1
+        product = 1.0
+        for k in range(1, i):
+            product *= (k + self.alpha) / k
+        return math.sqrt(product * self.init_radius2 / i)
+
+    @torch.no_grad()
+    def render(self, output: str = None, checkpoint_cb=None,
+               checkpoint_path: str = None):
+        """Run the iterations. output: PNG path, rewritten after every
+        iteration with the averaged image at gamma 1/2.2. checkpoint_path:
+        (img_sum, next_iteration) are saved there every iteration, and the
+        run resumes from that file when it exists. checkpoint_cb(i,
+        img_sum) is called after each iteration.
+
+        Afterwards self.iter_segments holds, per iteration, (photon ray
+        segments as a 0-dim device tensor, eye segments or None: exact only
+        when every eye path ends at its first hit), and
+        self.photon_map_lengths the valid deposits (0-dim device
+        tensors)."""
+        if self.verbose:
+            print(f"#max-bounces = {self.max_bounces}")
+            print(f"#photons/iter = {self.photon_count}")
+            print(f"#iterations = {self.iterations}")
+            print("-----", flush=True)
+        trace_photons, _, _ = make_photon_pass(
+            self.scene, self.lights, self.photon_count, self.max_bounces)
+        eff_bounces = (1 if scene_all_diffuse(self.scene)
+                       else self.max_bounces)
+        eye_pass = make_eye_pass(self.camera, self.width, self.height,
+                                 self.max_bounces, self.photon_count,
+                                 self.scene, eff_bounces)
+        dev = self.scene.center.device
+        img_sum = torch.zeros(self.height, self.width, 3,
+                              dtype=torch.float64, device=dev)
+        start_iter = 0
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            ck = np.load(checkpoint_path)
+            if (ck["img_sum"].shape == tuple(img_sum.shape)
+                    and int(ck["photon_count"]) == self.photon_count
+                    and float(ck["alpha"]) == self.alpha):
+                img_sum = torch.as_tensor(ck["img_sum"], device=dev)
+                start_iter = int(ck["next_iteration"])
+                if self.verbose:
+                    print(f"resuming from iteration {start_iter}", flush=True)
+
+        self.iter_segments = []
+        self.photon_map_lengths = []
+        for i in range(start_iter, self.iterations):
+            t_iter = time.monotonic()
+            r = self.radius(i + 1)
+            if self.verbose:
+                print(f"#iteration = {i}, radius = {r:.3f}", flush=True)
+            pos, nrm, flux, ok, segments = trace_photons(
+                i * self.photon_count & M32)
+            n_photons = ok.sum()
+            if self.verbose:
+                print(f"  photon map length = {int(n_photons)} "
+                      f"({time.monotonic() - t_iter:.2f}s)", flush=True)
+            grid = gk.build_photon_chunks(pos, nrm, flux, ok)
+            band = eye_pass(i * self.width * self.height & M32, r, grid)
+            img_sum += band.flip(0).to(torch.float64)  # output row order
+            if self.verbose:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                print(f"  iteration wall = "
+                      f"{time.monotonic() - t_iter:.2f}s", flush=True)
+            if output is not None:
+                avg = (img_sum / (i + 1)) ** (1.0 / 2.2)  # PPM gamma 1/2.2
+                write_png(output, avg.cpu().numpy())
+            if checkpoint_path is not None:
+                tmp = checkpoint_path + ".tmp.npz"
+                np.savez(tmp, img_sum=img_sum.cpu().numpy(),
+                         next_iteration=i + 1,
+                         photon_count=self.photon_count, alpha=self.alpha)
+                os.replace(tmp, checkpoint_path)
+            self.iter_segments.append(
+                (segments,
+                 self.width * self.height if eff_bounces == 1 else None))
+            self.photon_map_lengths.append(n_photons)
+            if checkpoint_cb is not None:
+                checkpoint_cb(i, img_sum)
+        return img_sum

@@ -139,7 +139,9 @@ def test_cli_refuses_missing_cuda_and_unported_scenes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(["shirley-spheres", "--dimension=64,32"])
-    for cmd in ("cornell-box", "ganesha", "ply-describe"):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(["cornell-box", "-width", "32", "-height", "32"])
+    for cmd in ("ganesha", "ply-describe"):
         with pytest.raises(SystemExit) as e:
             cli.main([cmd])
         assert e.value.code != 0

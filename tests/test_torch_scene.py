@@ -57,6 +57,9 @@ def test_scene_from_numpy_equals_builder(scenes):
     assert int(tscene.valid.sum()) == 531
     for f in dataclasses.fields(Scene):
         a, b = getattr(carried, f.name), getattr(tscene, f.name)
+        if b is None:  # the triangle pool of a sphere scene
+            assert a is None, f.name
+            continue
         assert a.dtype == b.dtype, f.name
         assert torch.equal(a, b), f.name
 
