@@ -38,7 +38,36 @@ Phases, one line each; any failure raises and the script exits non-zero:
      iteration, profiled in a second render (table in
      chiprun_out/cornell_profile.txt);
   8. cornell CLI: `python -m pathtracer_tpu_torch cornell-box ...` (2
-     iterations) writes a 600x600 PNG (to chiprun_out/).
+     iterations) writes a 600x600 PNG (to chiprun_out/);
+  9. mesh: g++ builds native/bvh_build.cc (timed), scenes/big_ganesha.ply
+     loads into a MeshBVH (449,352 triangles: depth, walk-table rows,
+     build seconds) and the renderer builds its tile table (columns, list
+     length mean and max);
+ 10. mesh kernels against their plain versions, which they must equal
+     exactly: bvh8_walk on iteration 1's photon bounce-0 and bounce-1 rays
+     (75,776 lanes, t_max0 the pool winner's t; the plain version over all
+     lanes, which also counts each lane's steps and the table rows read);
+     intersect_tile_tris on iteration 1's eye primaries (608 x 600 rays),
+     the plain version on 32 tiles (the 16 with the longest lists and 16
+     spaced) and the kernel on the same tiles and on all 361;
+ 11. ganesha eye pass and render: first the eye pass alone, at 600x600
+     over the JAX reference's own iteration-1 deposits, against the JAX
+     image of that iteration (scenes/ref_ganesha_600x600_it1_photons.npz;
+     RMSE within 0.5% of its RMS); then `ganesha 600x600, 10 iterations,
+     75,000 photons, 4 bounces` through PPMRenderer.render, with the five
+     kernels' launch
+     counts, the first iteration's seconds and the median s/iter of
+     iterations 2-10, photon map lengths against the reference file's
+     (within 0.1%), the RMSE against
+     scenes/ref_ganesha_600x600_it10_pc75k_b4.npz (JAX on the CPU) and the
+     RMSE of 8x8-pixel means (budgets below), and one profiled warm
+     iteration (table in chiprun_out/ganesha_profile.txt);
+ 12. ganesha CLIs: `ganesha ... -iterations 2` writes a 600x600 PNG,
+     `ganesha -stop-after-bvh` prints the mesh's statistics, and
+     `ply-describe scenes/test_ganesha.ply` runs.
+Each kernel's bound_ms in the JSON line is the larger of the bytes it must
+move over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
+from this run's inputs (OPS below).
 Then a JSON line of kernel results, the nvidia-smi line, and the final
 `{"ok": true, "device": {...}}` line. Without a CUDA device, or without the
 package beside this script, it fails before printing any result.
@@ -46,6 +75,7 @@ package beside this script, it fails before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -69,6 +99,45 @@ PPM_REF = os.path.join(ROOT, "scenes", "ref_cornell_600x600_it10_pc75k_b4.npz")
 PPM_RMSE_BUDGET = 2e-3
 PPM_LENGTH_SLACK = 1e-3  # photon map length, relative to the reference's
 GATHER_LONGEST = GATHER_SPACED = 16  # blocks the plain gather is held on
+# the ganesha PPM path: the reference's default ganesha command
+GANESHA_PLY = os.path.join(ROOT, "scenes", "big_ganesha.ply")
+GANESHA_REF = os.path.join(ROOT, "scenes",
+                           "ref_ganesha_600x600_it10_pc75k_b4.npz")
+GANESHA_TRIS = 449_352
+# RMSE budget, as a share of the reference image's RMS (0.051307). The
+# gather radius is under a pixel (r(1) = 0.160 camera units, a pixel ~0.2 at
+# the statue), so a pixel's value is one or two photons, and a photon path
+# that an ulp of sin/cos sends across one of the 449k triangles' edges moves
+# a whole pixel: of the 83,226 deposits of iteration 1, 15 land elsewhere
+# and 5 are valid in one package only, between the port and the JAX package
+# both on the CPU (tools/ganesha_photon_divergence.py). Measured on the card
+# (NVIDIA H100 80GB HBM3, 700 W): RMSE 5.70e-4, 1.11% of the RMS, from
+# single pixels; neighbouring pixels agree within a few percent.
+GANESHA_RMSE_SHARE = 2e-2
+# the quality check that averages those single-pixel photons out: the RMSE
+# of the image in 8x8-pixel means, as a share of the same means' RMS
+GANESHA_BINNED_SHARE = 5e-3
+# the eye pass alone, with the photon paths taken out: iteration 1's image
+# over the JAX reference's own deposits (tools/make_ganesha_reference.py
+# --witness), RMSE as a share of that image's RMS, at the 0.5% budget
+GANESHA_WITNESS = os.path.join(ROOT, "scenes",
+                               "ref_ganesha_600x600_it1_photons.npz")
+GANESHA_WITNESS_SHARE = 5e-3
+TILE_LONGEST = TILE_SPACED = 16  # tiles the plain tile kernel is held on
+# The card's peaks for bound_ms (NVIDIA's H100 SXM data sheet): HBM 3.35
+# TB/s and 67 TFLOP/s of float32 outside the tensor cores.
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+FP32_OPS_PER_MS = 67e12 / 1e3
+# float32 operations per unit of work, counted in the CUDA sources
+# (compares and integer work not counted): a ray-sphere test of
+# intersect_spheres.cu (20) and of fused_bounce.cu (18; 9 for its
+# origin-zero bounce 0 over the per-block lists), a ray-triangle
+# test of intersect_tris.cu and bvh8_walk.cu (46) and of the origin-zero
+# intersect_tile_tris.cu (44), a hit-photon pair of gather_chunks.cu (22),
+# and a node row of bvh8_walk.cu (185: 9 for the ray's frame, 8 children x
+# 3 axes x 6 slab operations, 32 for the children's min/max reductions).
+OPS = dict(sphere=20, fused_sphere=18, listed_sphere=9, tri=46,
+           tile_tri=44, gather=22, node=185)
 # Kernel vs plain on the card: none. The kernels are built without FMA
 # contraction and fast math and round every operation as the plain versions
 # do, so state, radiance and alive flags must be equal. (The 1e-2 / 1e-6
@@ -84,6 +153,15 @@ def phase(name: str, **fields) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """bound_ms and bound_by: the larger of the bytes over the HBM rate and
+    the float32 operations over the FP32 peak."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_MS, n_ops / FP32_OPS_PER_MS
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
 
 
 def nvidia_smi() -> str:
@@ -129,6 +207,28 @@ def device_times(torch, fn, reps: int = 10):
     return (*device_per_kernel(prof, reps), wall_ms)
 
 
+def profile_second_iteration(torch, rend):
+    """Profile iteration 2 of a 2-iteration render of `rend` (PPMRenderer),
+    opened and closed at two checkpoint_cb ticks, so that no per-render
+    set-up falls inside the window. Returns (profile, the iteration's wall
+    ms, the render's image sum)."""
+    prof = profiler()
+    window = {}
+
+    def tick(i, img_sum):
+        torch.cuda.synchronize()
+        if i == 0:
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif i == 1:
+            window["ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.stop()
+
+    rend.iterations = 2
+    img_sum = rend.render(checkpoint_cb=tick)
+    return prof, window["ms"], img_sum
+
+
 def profiler():
     from torch.profiler import ProfilerActivity, profile
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -151,6 +251,15 @@ def device_per_kernel(prof, reps: int):
 
 def kernel_ms(per: dict, name: str) -> float:
     return sum(ms for key, ms in per.items() if name in key)
+
+
+def device_ms_field(per: dict, name: str) -> str:
+    """A kernel's device ms per call for a phase line. Late in a long
+    process the profiler now and then records no device event at all in a
+    window that holds only ctypes-launched kernels (seen for the mesh
+    kernels): that reads "not_seen", and the CUDA-event ms stands."""
+    return (f"{kernel_ms(per, name):.4f}" if any(name in k for k in per)
+            else "not_seen")
 
 
 def png_size(path: str) -> tuple[int, int]:
@@ -180,7 +289,7 @@ def compare(torch, name, fn_k, fn_p, what, kernel, plain_reps=7,
     _, per, _, _ = device_times(torch, fn_k, reps=5)
     pdev, _, _, _ = device_times(torch, fn_p, reps=plain_prof)
     phase(name, shape=what, equal=exact, max_abs_err=err, ms=f"{kms:.4f}",
-          plain_ms=f"{pms:.4f}", device_ms=f"{kernel_ms(per, kernel):.4f}",
+          plain_ms=f"{pms:.4f}", device_ms=device_ms_field(per, kernel),
           wrapper_device_ms=f"{sum(per.values()):.4f}",
           plain_device_ms=f"{pdev:.4f}", **fields)
     require(exact, f"{name} ({what}): the kernel differs from its plain "
@@ -214,9 +323,16 @@ def ppm_phases(torch, np, dev, smi):
     require(p_org.shape[0] == 75_776 and e_org.shape[0] == 360_448,
             f"rays {p_org.shape[0]}, {e_org.shape[0]}")
     times = {}
+    n_sph, n_tri = int(scene.valid.sum()), int(scene.tri_valid.sum())
     for label, org, d, alive in (("photon_b0", p_org, p_d, p_alive),
                                  ("eye_b0", e_org, e_d, e_alive)):
         args = (org.contiguous(), d.contiguous(), alive)
+        n, n_alive = org.shape[0], int(alive.sum())
+        # rays in (24 B + the alive byte), outputs, the valid primitives
+        times[("bound_spheres", label)] = bound(
+            n * (25 + 12) + sph.numel() * 4, n_alive * n_sph * OPS["sphere"])
+        times[("bound_tris", label)] = bound(
+            n * (25 + 8) + tri.numel() * 4, n_alive * n_tri * OPS["tri"])
         err_s, kms, pms, _ = compare(
             torch, "intersect_spheres",
             lambda: sk.intersect_spheres(sph, *args),
@@ -242,7 +358,7 @@ def ppm_phases(torch, np, dev, smi):
     pt, nm, _, act = eye.walk(0)
     perm = torch.argsort(gk.hit_morton_keys(pt, act), stable=True)
     pt, nm, act = pt[perm].contiguous(), nm[perm].contiguous(), act[perm]
-    _, counts = gk.block_chunk_lists(pt, act, sbox, r1)
+    lists, counts = gk.block_chunk_lists(pt, act, sbox, r1)
     nblk = counts.shape[0]
     longest = torch.argsort(counts, descending=True, stable=True)[
         :GATHER_LONGEST].tolist()
@@ -252,6 +368,19 @@ def ppm_phases(torch, np, dev, smi):
     rows = torch.cat([torch.arange(b * 1024, (b + 1) * 1024, device=dev)
                       for b in blocks])
     sub = (pt[rows].contiguous(), nm[rows].contiguous(), act[rows])
+    # the checked blocks' work: active hits x the photons of their listed
+    # sub-chunks; bytes: the hits, the lists, the distinct listed chunks
+    pairs, words = 0, []
+    for b in blocks:
+        w = lists[b, :counts[b]].long()
+        n_subs = sum(int(((w >> (gk.MASK_SHIFT + k)) & 1).sum())
+                     for k in range(gk.N_SUBS))
+        pairs += int(act[b * 1024:(b + 1) * 1024].sum()) * n_subs * gk.SUB
+        words.append(w)
+    words = torch.cat(words)
+    n_chunks = int(torch.unique(words & ((1 << gk.MASK_SHIFT) - 1)).numel())
+    g_bound = bound(rows.numel() * (25 + 12) + words.numel() * 4
+                    + n_chunks * gk.CHB * 9 * 4, pairs * OPS["gather"])
     full = gk.gather_flux_chunks(pt, nm, act, sbox, photons_t, r1)
     torch.cuda.synchronize()
     err_g, g_ms_sub, g_plain_ms, (want_rows,) = compare(
@@ -320,24 +449,10 @@ def ppm_phases(torch, np, dev, smi):
     require(rmse < PPM_RMSE_BUDGET, f"cornell RMSE {rmse} >= "
             f"{PPM_RMSE_BUDGET}")
 
-    # device time of one warm iteration: a second render of the same
-    # renderer, profiled from the end of its iteration 1 to the end of its
-    # iteration 2 (no per-render set-up inside the window); the idle share
-    # of that iteration's own wall, and of the unprofiled median beside it
-    prof = profiler()
-    window = {}
-
-    def prof_tick(i, img_sum):
-        torch.cuda.synchronize()
-        if i == 0:
-            prof.start()
-            window["t0"] = time.perf_counter()
-        elif i == 1:
-            window["ms"] = (time.perf_counter() - window["t0"]) * 1e3
-            prof.stop()
-
-    rend.render(checkpoint_cb=prof_tick)
-    prof_wall_ms = window["ms"]
+    # device time of one warm iteration of a second render of the same
+    # renderer; the idle share of that iteration's own wall, and of the
+    # unprofiled median beside it
+    prof, prof_wall_ms, _ = profile_second_iteration(torch, rend)
     median_ms = statistics.median(iter_s[1:]) * 1e3
     busy_ms, per, n_ops = device_per_kernel(prof, 1)
     top = sorted(per.items(), key=lambda kv: -kv[1])
@@ -377,25 +492,390 @@ def ppm_phases(torch, np, dev, smi):
           said=json.dumps(cli.stdout.strip().splitlines()[-1]))
     require(png_wh == (size, size), f"PNG is {png_wh}")
 
-    src = "pathtracer_tpu_torch/csrc/"
-    pallas = "pathtracer_tpu/ops/pallas/"
-    entry = lambda name, source, replaces, err, kms, pms, **kw: dict(
-        name=name, route="cuda", source=src + source,
-        replaces=pallas + replaces, max_abs_err=err, ms=kms, plain_ms=pms,
-        **kw)
     kernels = [
         entry("intersect_spheres", "intersect_spheres.cu",
-              "sphere_kernel.py:302", *times[("intersect_spheres", "eye_b0")],
-              shape="eye bounce-0 rays, 360448"),
-        entry("intersect_tris", "intersect_tris.cu", "tri_kernel.py:140",
+              "pallas/sphere_kernel.py:302", *times[("intersect_spheres", "eye_b0")],
+              **times[("bound_spheres", "eye_b0")],
+              shape="cornell eye bounce-0 rays, 360448 x 3 valid spheres"),
+        entry("intersect_tris", "intersect_tris.cu",
+              "pallas/tri_kernel.py:140",
               *times[("intersect_tris", "eye_b0")],
-              shape="eye bounce-0 rays, 360448"),
+              **times[("bound_tris", "eye_b0")],
+              shape="cornell eye bounce-0 rays, 360448 x 18 valid triangles"),
         entry("gather_flux_chunks", "gather_chunks.cu",
-              "gather_kernel.py:468", err_g, g_ms_sub, g_plain_ms,
+              "pallas/gather_kernel.py:468", err_g, g_ms_sub, g_plain_ms, **g_bound,
               shape=f"{len(blocks)} of {nblk} blocks at iteration 1",
               ms_all_blocks=g_ms),
     ]
     return kernels, launches
+
+
+def mesh_phases(torch, np, dev, smi):
+    """Phases 9-12: the ganesha mesh, its two kernels against their plain
+    versions, the ganesha render and its CLIs. Returns (kernel JSON entries
+    without launches, launch counts of the render's five kernels)."""
+    rend, kernels = mesh_kernel_phases(torch, np, dev)
+    return kernels, ganesha_phases(torch, np, smi, rend)
+
+
+def mesh_kernel_phases(torch, np, dev):
+    """Phases 9-10. Returns (the ganesha PPMRenderer, its tile table built,
+    and the JSON entries of the two mesh kernels)."""
+    from pathtracer_tpu_torch import native, ppm
+    from pathtracer_tpu_torch.models import ganesha
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+
+    size, iters, photons, bounces = (PPM_SIZE, PPM_ITERS, PPM_PHOTONS,
+                                     PPM_BOUNCES)
+    # --- 9. the mesh: g++ build of native/, PLY, BVH, walk and tile tables
+    t0 = time.perf_counter()
+    native.load()
+    gpp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene, cam, lights, mesh = ganesha.build(GANESHA_PLY, 1.0, dev)
+    build_s = time.perf_counter() - t0
+    rend = ppm.PPMRenderer(scene, cam, lights, size, size, iterations=iters,
+                           photon_count=photons, max_bounces=bounces,
+                           verbose=False, mesh=mesh)
+    t0 = time.perf_counter()
+    tile = rend.tile_tensors(1)
+    tile_s = time.perf_counter() - t0
+    tt = rend.tile_table
+    # each tile's real triangles (its columns before the zero padding)
+    real = np.flatnonzero((tt.table[3:9] != 0).any(axis=0))
+    n_real = np.array([np.count_nonzero(
+        (real >= tt.tile_chunk_start[i] * ttk.CHUNK)
+        & (real < tt.tile_chunk_start[i + 1] * ttk.CHUNK))
+        for i in range(len(tt.tile_chunk_start) - 1)])
+    phase("mesh", triangles=mesh.n_tris, depth=mesh.depth,
+          walk_table_rows=mesh.table_np.shape[0], node_end=mesh.node_end,
+          stride=mesh.stride, gpp_build_s=f"{gpp_s:.3f}",
+          mesh_build_s=f"{build_s:.3f}", tile_table_s=f"{tile_s:.3f}",
+          tile_columns=tt.table.shape[1], tiles=len(n_real),
+          list_mean=f"{n_real.mean():.2f}", list_max=int(n_real.max()),
+          chunks=int(tt.tile_chunk_start[-1]))
+    require(mesh.n_tris == GANESHA_TRIS, f"{mesh.n_tris} triangles")
+
+    # --- 10. the two kernels against their plain versions ------------------
+    # the walk's inputs as iteration 1's photon pass makes them (org, d, the
+    # pool winner's t as t_max0, alive), bounces 0 and 1
+    trace, _, _ = ppm.make_photon_pass(scene, lights, photons, bounces, mesh)
+    walk_in = []
+    walk = mesh.intersect
+
+    def record(org, d, t_max0, active):
+        walk_in.append(tuple(x.clone() for x in (org, d, t_max0, active)))
+        return walk(org, d, t_max0, active)
+
+    mesh.intersect = record
+    trace(0)
+    del mesh.intersect
+    require(len(walk_in) == bounces
+            and walk_in[0][0].shape[0] == -(-photons // 1024) * 1024,
+            f"walk calls {len(walk_in)}")
+    walk_times, walk_bounds = {}, {}
+    for b in (0, 1):
+        org, d, t_max0, active = walk_in[b]
+        args = (mesh.table, org, d, t_max0, active, mesh.node_end,
+                mesh.stride)
+        *_, steps, visited = bw.bvh8_walk_plain(*args, count_steps=True)
+        n, n_act = org.shape[0], int(active.sum())
+        lane_steps = steps.sum(dim=1)[active].float()
+        # bytes: the table rows read, the rays (29 B) and results (17 B)
+        w_bound = bound(int(visited.sum()) * 128 + n * (29 + 17),
+                        int(steps[:, 0].sum()) * OPS["node"]
+                        + int(steps[:, 1].sum()) * 2 * OPS["tri"])
+        walk_times[b] = compare(
+            torch, "bvh8_walk", lambda: bw.bvh8_walk(*args),
+            lambda: bw.bvh8_walk_plain(*args),
+            f"photon_b{b}:{n}_lanes", kernel="bvh8_walk_kernel",
+            plain_reps=2, plain_batch=1, plain_prof=1, active=n_act,
+            hits=int(bw.bvh8_walk(*args)[4].sum()),
+            steps_mean=f"{float(lane_steps.mean()):.2f}",
+            steps_max=int(lane_steps.max()),
+            node_steps=int(steps[:, 0].sum()),
+            pair_steps=int(steps[:, 1].sum()),
+            rows_read=int(visited.sum()),
+            bound_ms=f"{w_bound['bound_ms']:.4f}")[:3]
+        walk_bounds[b] = w_bound
+
+    # the eye primaries of iteration 1, one band of ceil(H/32)*32 rows; the
+    # plain version on the 16 tiles with the longest lists and 16 spaced
+    eye = ppm.make_eye_pass(cam, size, size, bounces, photons, scene, 1,
+                            mesh, tile)
+    rows = -(-size // ttk.TILE) * ttk.TILE
+    d = eye.primary(0)[2][:rows * size].contiguous()
+    n_tiles = len(n_real)
+    longest = np.argsort(-n_real, kind="stable")[:TILE_LONGEST].tolist()
+    spaced = [t for t in np.linspace(0, n_tiles - 1, TILE_SPACED + 8)
+              .round().astype(int).tolist() if t not in longest]
+    tiles = sorted(longest + spaced[:TILE_SPACED])
+    # the checked tiles keep their lists, the others get the zero chunk:
+    # the kernel then computes the same tiles as the plain version
+    keep = np.isin(np.arange(n_tiles), tiles)
+    start = tt.tile_chunk_start
+    sub_src = np.concatenate([
+        tt.tile_chunk_src[start[t]:start[t + 1]] if keep[t]
+        else [tt.zero_chunk] for t in range(n_tiles)]).astype(np.int32)
+    sub_start = np.concatenate([[0], np.cumsum(
+        np.where(keep, np.diff(start), 1))]).astype(np.int32)
+    sub = (tile[0], torch.from_numpy(sub_start).to(dev),
+           torch.from_numpy(sub_src).to(dev))
+    err_t, t_ms_sub, t_plain_ms, want = compare(
+        torch, "intersect_tile_tris",
+        lambda: ttk.intersect_tile_tris(*sub, d, size),
+        lambda: ttk.intersect_tile_tris_plain(*sub, d, size, tiles=tiles),
+        f"{len(tiles)}_of_{n_tiles}_tiles", kernel="intersect_tile_tris",
+        plain_reps=2, plain_batch=1, plain_prof=1,
+        list_lengths=json.dumps(n_real[tiles].tolist()))
+    full = ttk.intersect_tile_tris(*tile, d, size)
+    y, x = np.divmod(np.arange(rows * size), size)
+    mine = torch.from_numpy(keep[(y // ttk.TILE) * tt.tx_n
+                                 + x // ttk.TILE]).to(dev)
+    require(all(torch.equal(f[mine], w[mine]) for f, w in zip(full, want)),
+            "the full-size tile kernel differs from the plain version on "
+            "the checked tiles")
+    t_ms = time_ms(torch, lambda: ttk.intersect_tile_tris(*tile, d, size))
+    _, per, _, _ = device_times(
+        torch, lambda: ttk.intersect_tile_tris(*tile, d, size), reps=5)
+    # pairs: each tile's real triangles x its pixels inside the image
+    tw = np.minimum(ttk.TILE, size - (np.arange(n_tiles) % tt.tx_n)
+                    * ttk.TILE)
+    th = np.minimum(ttk.TILE, size - (np.arange(n_tiles) // tt.tx_n)
+                    * ttk.TILE)
+    pairs = int((n_real * tw * np.maximum(th, 0)).sum())
+    real_cols = int(n_real.sum())
+    t_bound = bound(d.numel() * 4 + rows * size * 16
+                    + real_cols * 10 * 4 + tile[1].numel() * 4
+                    + tile[2].numel() * 4, pairs * OPS["tile_tri"])
+    phase("intersect_tile_tris_full", rays=rows * size, tiles=n_tiles,
+          pairs=pairs, ms=f"{t_ms:.4f}",
+          device_ms=device_ms_field(per, "intersect_tile_tris"),
+          wrapper_device_ms=f"{sum(per.values()):.4f}",
+          bound_ms=f"{t_bound['bound_ms']:.4f}",
+          hits=int((full[0] < ttk.BIG).sum()))
+
+    kernels = [
+        entry("bvh8_walk", "bvh8_walk.cu", "bvh.py:892", *walk_times[0],
+              **walk_bounds[0],
+              shape="ganesha photon bounce-0 rays, 75776 lanes",
+              ms_bounce1=walk_times[1][1], plain_ms_bounce1=walk_times[1][2],
+              bound_ms_bounce1=walk_bounds[1]["bound_ms"]),
+        entry("intersect_tile_tris", "intersect_tile_tris.cu",
+              "pallas/tile_tri_kernel.py:142", err_t, t_ms, t_plain_ms,
+              **t_bound, shape=f"ganesha eye primaries, all {n_tiles} tiles "
+              f"(ms, bound_ms); {len(tiles)} tiles (plain_ms, "
+              "ms_checked_tiles)", ms_checked_tiles=t_ms_sub),
+    ]
+    return rend, kernels
+
+
+def ganesha_phases(torch, np, smi, rend):
+    """Phases 11-12: the ganesha render through PPMRenderer.render and the
+    CLIs. Returns the launch counts of the render's five kernels."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+    from pathtracer_tpu_torch.ops.cuda import tri_kernel as tk
+
+    size, iters, photons, bounces = (PPM_SIZE, PPM_ITERS, PPM_PHOTONS,
+                                     PPM_BOUNCES)
+    # --- 11. the ganesha eye pass and render ---------------------------------
+    eye_witness(torch, np, rend)
+    counters = {"intersect_spheres": sk.intersect_spheres,
+                "intersect_tris": tk.intersect_tris,
+                "gather_flux_chunks": gk.gather_flux_chunks,
+                "bvh8_walk": bw.bvh8_walk,
+                "intersect_tile_tris": ttk.intersect_tile_tris}
+    for fn in counters.values():
+        fn.launches = 0
+    marks = []
+
+    def tick(i, img_sum):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img_sum = rend.render(checkpoint_cb=tick)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    iter_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    lengths = [int(n) for n in rend.photon_map_lengths]
+    ref = np.load(GANESHA_REF)
+    img = img_sum.cpu().numpy() / iters
+    require(img.shape == ref["img"].shape == (size, size, 3),
+            f"image shape {img.shape}")
+    require(bool(np.isfinite(img).all()), "image has non-finite pixels")
+    ref_img = ref["img"].astype(np.float64)
+    rmse = float(np.sqrt(np.mean((img - ref_img) ** 2)))
+    ref_rms = float(np.sqrt(np.mean(ref_img ** 2)))
+    budget = GANESHA_RMSE_SHARE * ref_rms
+    binned = [x.reshape(size // 8, 8, size // 8, 8, 3).mean(axis=(1, 3))
+              for x in (img, ref_img)]
+    b_rms = float(np.sqrt(np.mean(binned[1] ** 2)))
+    b_share = float(np.sqrt(np.mean((binned[0] - binned[1]) ** 2))) / b_rms
+    ref_len = [int(n) for n in ref["photon_map_lengths"]]
+    len_err = max(abs(a - b) / b for a, b in zip(lengths, ref_len))
+    phase("ganesha_render",
+          config=f"{size}x{size},iters={iters},photons={photons},"
+                 f"b={bounces}",
+          first_iter_s=f"{iter_s[0]:.4f}",
+          median_s_per_iter=f"{statistics.median(iter_s[1:]):.4f}",
+          iter_s=json.dumps([round(t, 4) for t in iter_s]),
+          photon_map_lengths=json.dumps(lengths),
+          reference_lengths=json.dumps(ref_len),
+          max_length_rel_err=f"{len_err:.3e}", rmse=f"{rmse:.6e}",
+          rmse_budget=f"{budget:.6e}",
+          rmse_share_of_rms=f"{rmse / ref_rms:.4e}",
+          binned8_rmse_share=f"{b_share:.4e}",
+          max_abs_diff=f"{float(np.abs(img - ref_img).max()):.6e}",
+          pixels_off_by_1e_2=int((np.abs(img - ref_img).max(axis=-1)
+                                  > 1e-2).sum()),
+          black_pixel_share=f"{float((ref_img.max(axis=-1) == 0).mean()):.4f}",
+          launches=json.dumps(launches), gpu=json.dumps(smi))
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel did not run on the ganesha path: {launches}")
+    require(len_err <= PPM_LENGTH_SLACK,
+            f"photon map lengths {lengths} vs {ref_len}")
+    require(rmse <= budget, f"ganesha RMSE {rmse} > {budget}")
+    require(b_share <= GANESHA_BINNED_SHARE,
+            f"ganesha 8x8-binned RMSE share {b_share} > "
+            f"{GANESHA_BINNED_SHARE}")
+
+    # one warm iteration profiled, as the cornell phase does; then the
+    # same two iterations with the walk for the eye rays (tile_primary
+    # False): the same image but where two triangles tie exactly in t
+    prof, prof_wall_ms, tile_sum = profile_second_iteration(torch, rend)
+    walk_sum = dataclasses.replace(rend, tile_primary=False).render()
+    ab_diff = float((tile_sum - walk_sum).abs().max())
+    median_ms = statistics.median(iter_s[1:]) * 1e3
+    busy_ms, per, n_ops = device_per_kernel(prof, 1)
+    top = sorted(per.items(), key=lambda kv: -kv[1])
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "ganesha_profile.txt"), "w") as f:
+        f.write(f"{smi}\nwall_ms(profiled iteration)={prof_wall_ms:.3f} "
+                f"wall_ms(unprofiled median)={median_ms:.3f} "
+                f"device_busy_ms={busy_ms:.3f} device_ops={n_ops:.0f}\n")
+        f.writelines(f"{ms:10.4f} ms  {name}\n" for name, ms in top)
+    phase("ganesha_profile", wall_ms=f"{prof_wall_ms:.3f}",
+          unprofiled_median_ms=f"{median_ms:.3f}",
+          device_busy_ms=f"{busy_ms:.3f}",
+          device_idle_share=f"{1 - busy_ms / prof_wall_ms:.3f}",
+          device_idle_share_of_median=f"{1 - busy_ms / median_ms:.3f}",
+          bvh8_walk_ms=f"{kernel_ms(per, 'bvh8_walk_kernel'):.3f}",
+          tile_ms=f"{kernel_ms(per, 'intersect_tile_tris'):.3f}",
+          gather_ms=f"{kernel_ms(per, 'gather_chunks_kernel'):.3f}",
+          intersect_tris_ms=f"{kernel_ms(per, 'intersect_tris_kernel'):.3f}",
+          intersect_spheres_ms=f"{kernel_ms(per, 'intersect_spheres_kernel'):.3f}",
+          device_ops=f"{n_ops:.0f}", kernels_seen=len(per),
+          tile_vs_walk_eye_max_abs=f"{ab_diff:.6e}")
+
+    # --- 12. the ganesha and ply-describe CLIs ------------------------------
+    png = os.path.join(OUT, f"ganesha_{size}x{size}.png")
+    if os.path.exists(png):
+        os.remove(png)
+    ply_arg = os.path.relpath(GANESHA_PLY, ROOT)
+    runs = {
+        "render": ["ganesha", "-ganesha-ply", ply_arg, "-width", str(size),
+                   "-height", str(size), "-iterations", "2",
+                   "-photon-count", str(photons), "-max-bounces",
+                   str(bounces), "-no-progress", "-o", png],
+        "stop_after_bvh": ["ganesha", "-ganesha-ply", ply_arg,
+                           "-stop-after-bvh"],
+        "ply_describe": ["ply-describe",
+                         os.path.join("scenes", "test_ganesha.ply")],
+    }
+    said = {}
+    for label, argv in runs.items():
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "pathtracer_tpu_torch",
+                              *argv], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        require(run.returncode == 0,
+                f"{label} CLI failed:\n{run.stdout}\n{run.stderr}")
+        said[label] = (time.perf_counter() - t0, run.stdout.splitlines())
+    png_wh = png_size(png)
+    stats = said["stop_after_bvh"][1]
+    phase("ganesha_cli", seconds=f"{said['render'][0]:.3f}",
+          png=os.path.relpath(png, ROOT), size=f"{png_wh[0]}x{png_wh[1]}",
+          said=json.dumps(said["render"][1][-1]),
+          stop_after_bvh_s=f"{said['stop_after_bvh'][0]:.3f}",
+          stats=json.dumps([ln for ln in stats if ln.startswith(
+              ("#triangles", "tree depth", "build time", "bvh bytes"))]),
+          ply_describe=json.dumps(said["ply_describe"][1][:2]))
+    require(png_wh == (size, size), f"PNG is {png_wh}")
+    require(f"#triangles = {GANESHA_TRIS}" in stats
+            and stats[-1] == "Stop after bvh build",
+            f"-stop-after-bvh said {stats}")
+    require(said["ply_describe"][1][0] == "format = binary_little_endian",
+            f"ply-describe said {said['ply_describe'][1][:1]}")
+
+    return launches
+
+
+def eye_witness(torch, np, rend):
+    """The eye pass alone at full size: the port's (eye rays through the
+    tile kernel, chunk gather, film) over the JAX reference's own
+    iteration-1 deposits, against the JAX image of that iteration over
+    them; the difference split between pixels whose eye ray meets the mesh
+    and floor pixels. The port's image goes to
+    chiprun_out/ganesha_eye_witness.npz."""
+    from pathtracer_tpu_torch import ppm
+    from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+
+    size, photons, bounces = PPM_SIZE, PPM_PHOTONS, PPM_BOUNCES
+    wit = np.load(GANESHA_WITNESS)
+    r1, dev = rend.radius(1), rend.scene.center.device
+    require(abs(r1 - float(wit["radius"])) <= 1e-12 * r1,
+            f"r(1) {r1} vs the reference's {float(wit['radius'])}")
+    tile = rend.tile_tensors(1)
+    eye = ppm.make_eye_pass(rend.camera, size, size, bounces, photons,
+                            rend.scene, 1, rend.mesh, tile)
+    deps = [torch.from_numpy(wit[k]).to(dev) for k in ("pos", "nrm", "flux")]
+    ok = torch.ones(deps[0].shape[0], dtype=torch.bool, device=dev)
+    one = eye(0, r1, gk.build_photon_chunks(*deps, ok)).flip(0)
+    one = one.cpu().numpy().astype(np.float64)
+    want = wit["img"].astype(np.float64)
+    rows = -(-size // ttk.TILE) * ttk.TILE  # the band of whole tiles
+    d = eye.primary(0)[2][:rows * size].contiguous()
+    t_eye = ttk.intersect_tile_tris(*tile, d, size)[0][:size * size]
+    on_mesh = (t_eye < ttk.BIG).cpu().numpy().reshape(size, size)[::-1]
+    rms = float(np.sqrt(np.mean(want ** 2)))
+    diff = one - want
+    w_share = float(np.sqrt(np.mean(diff ** 2))) / rms
+    # each part's share of the whole image's squared error: they add to 1
+    sq = (diff ** 2).sum(axis=-1)
+    off = np.abs(diff).max(axis=-1) > 1e-2
+    os.makedirs(OUT, exist_ok=True)
+    np.savez_compressed(os.path.join(OUT, "ganesha_eye_witness.npz"),
+                        img=one.astype(np.float32), on_mesh=on_mesh)
+    phase("ganesha_eye_on_reference_photons", deposits=deps[0].shape[0],
+          radius=f"{r1:.6f}", rmse_share_of_rms=f"{w_share:.4e}",
+          budget=GANESHA_WITNESS_SHARE,
+          max_abs_diff=f"{float(np.abs(diff).max()):.6e}",
+          pixels_off_by_1e_2=int(off.sum()),
+          mesh_pixels_off_by_1e_2=int((off & on_mesh).sum()),
+          pixels_differing=int((diff != 0).any(axis=-1).sum()),
+          mesh_pixels=int(on_mesh.sum()),
+          mesh_share_of_sq_err=f"{float(sq[on_mesh].sum() / max(sq.sum(), 1e-300)):.4f}",
+          mesh_max_rel_diff=f"{float((np.abs(diff) / np.maximum(want, 1e-3))[on_mesh].max()):.4e}",
+          floor_max_rel_diff=f"{float((np.abs(diff) / np.maximum(want, 1e-3))[~on_mesh].max()):.4e}",
+          black_pixel_share=f"{float((want.max(axis=-1) == 0).mean()):.4f}")
+    require(w_share <= GANESHA_WITNESS_SHARE,
+            f"the eye pass over the reference's photons: RMSE share "
+            f"{w_share} > {GANESHA_WITNESS_SHARE}")
+
+
+def entry(name, source, replaces, err, kms, pms, **kw):
+    """One kernel of the JSON line; no single PyTorch call computes any of
+    the port's kernels, so library_ms is null throughout."""
+    return dict(name=name, route="cuda",
+                source="pathtracer_tpu_torch/csrc/" + source,
+                replaces="pathtracer_tpu/ops/" + replaces, max_abs_err=err,
+                ms=kms, plain_ms=pms, library_ms=None, **kw)
 
 
 def main() -> None:
@@ -449,8 +929,10 @@ def main() -> None:
 
     fb_err = 0.0
     fb_times = {}
+    fb_in = {}
     state_in = state0
     for b, listed in ((0, True), (1, False), (2, False)):
+        fb_in[b] = state_in
         st_k, rad_k = bounce(fbk.fused_bounce, state_in, b, listed)
         st_p, rad_p = bounce(fbk.fused_bounce_plain, state_in, b, listed)
         torch.cuda.synchronize()
@@ -582,21 +1064,53 @@ def main() -> None:
 
     ppm_kernels, ppm_launches = ppm_phases(torch, np, dev, smi)
 
+    mesh_kernels, mesh_launches = mesh_phases(torch, np, dev, smi)
+
+    # bounds of the PT kernels: bounce 1 (full) reads state (10 planes),
+    # radiance (3) and offsets, writes state and radiance, and tests each
+    # live ray against the valid spheres. Compaction reads every lane's
+    # alive word and the 9 payload words and offset of each live lane, and
+    # writes 10 state words and an offset per lane and a count per block.
+    st1 = fb_in[1]
+    n1 = st1.shape[1] * st1.shape[2]
+    fb_bound = bound(n1 * 4 * (10 + 3 + 1 + 10 + 3)
+                     + (r.sph_table.numel() + r.pack_table.numel()) * 4,
+                     int((st1[9] > 0).sum()) * int(scene.valid.sum())
+                     * OPS["fused_sphere"])
+    n3, live3 = off.numel(), int((state_in[9] > 0).sum())
+    ck_bound = bound(n3 * 4 + live3 * 40 + n3 * 44 + n3 // 1024 * 4, 0)
+    # bounce 0 (listed): each live ray against its block's list (the
+    # distinct spheres; a list is padded with repeats of its first)
+    live_blk = (fb_in[0][9] > 0).reshape(-1, 1024).sum(dim=1)
+    n_list = torch.tensor([len(set(row[:c].tolist())) for row, c in zip(
+        r.lists.cpu(), r.counts[:, 0].tolist())], device=dev)
+    fb0_bound = bound(n1 * 4 * (10 + 3 + 1 + 10 + 3) + r.lists.numel() * 4
+                      + (r.sph_table.numel() + r.pack_table.numel()) * 4,
+                      int((live_blk * n_list).sum()) * OPS["listed_sphere"])
     kernels = [
-        {"name": "fused_bounce", "route": "cuda",
-         "source": "pathtracer_tpu_torch/csrc/fused_bounce.cu",
-         "replaces": "pathtracer_tpu/ops/pallas/fused_bounce_kernel.py:123",
-         "launches": launches["fused_bounce"], "max_abs_err": fb_err,
-         "ms": fb_times[1][0], "plain_ms": fb_times[1][1]},
-        {"name": "compact_blocks", "route": "cuda",
-         "source": "pathtracer_tpu_torch/csrc/compact.cu",
-         "replaces": "pathtracer_tpu/ops/pallas/compact_kernel.py:129",
-         "launches": launches["compact_blocks"], "max_abs_err": ck_err,
-         "ms": ck_ms, "plain_ms": ck_plain_ms},
+        entry("fused_bounce", "fused_bounce.cu",
+              "pallas/fused_bounce_kernel.py:123", fb_err, *fb_times[1],
+              **fb_bound, shape="shirley bounce 1 (full), 194560 lanes",
+              launches=launches["fused_bounce"],
+              ms_listed_bounce0=fb_times[0][0],
+              plain_ms_listed_bounce0=fb_times[0][1],
+              bound_ms_listed_bounce0=fb0_bound["bound_ms"]),
+        entry("compact_blocks", "compact.cu", "pallas/compact_kernel.py:129",
+              ck_err, ck_ms, ck_plain_ms, **ck_bound,
+              shape="shirley bounce 3, 194560 lanes",
+              launches=launches["compact_blocks"]),
     ]
+    # the PPM pool and gather kernels run on the cornell and the ganesha
+    # paths: launches is the sum of the two runs, each read on its own
     for k in ppm_kernels:
-        k["launches"] = ppm_launches[k["name"]]
+        by_path = {"cornell": ppm_launches[k["name"]],
+                   "ganesha": mesh_launches[k["name"]]}
+        k.update(launches=sum(by_path.values()), launches_by_path=by_path)
     kernels += ppm_kernels
+    for k in mesh_kernels:
+        k["launches"] = mesh_launches[k["name"]]
+    kernels += mesh_kernels
+    require(len(kernels) == 7, f"{len(kernels)} kernels in the JSON line")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Command-line harness: `python -m pathtracer_tpu_torch <command> [args]`.
 
-Port of pathtracer_tpu/cli.py for shirley-spheres and cornell-box.
+Port of pathtracer_tpu/cli.py for shirley-spheres, cornell-box, ganesha
+and ply-describe.
 shirley-spheres takes the JAX CLI's render flags (add_render_args) plus
 --device, default cuda. Without a CUDA device it raises unless `--device
 cpu` is given. --interpreter (the A/B oracle) renders with the kernels'
@@ -8,10 +9,13 @@ plain PyTorch versions, which run on CPU tensors only, so it means `--device
 cpu` and is refused with any other device. The progress-bar run and the
 --no-progress run go through the same make_render_fn.
 
-cornell-box takes the JAX CLI's PPM flags (add_ppm_args, both -flag and
---flag spellings) plus --device, with the same CUDA rule; the CPU renders
-with the plain versions. -shard-photon-map (multi-device), ganesha and the
-PLY tool are not ported yet.
+cornell-box and ganesha take the JAX CLI's PPM flags (add_ppm_args, both
+-flag and --flag spellings) plus --device, with the same CUDA rule; the CPU
+renders with the plain versions. ganesha adds -ganesha-ply and
+-stop-after-bvh and prints the mesh's build statistics as the JAX CLI does;
+the BVH is built on the host (native/, g++). ply-describe prints a PLY
+file's header and columns. -shard-photon-map (multi-device) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -159,12 +163,94 @@ def run_cornell(argv=None) -> None:
     print(f"render time = {(time.monotonic() - t0) * 1e3:.3f} ms")
 
 
-def _not_ported(name: str):
-    def run(argv=None) -> None:
-        print(f"{name}: not ported to pathtracer_tpu_torch yet; use "
-              f"`python -m pathtracer_tpu {name}`", file=sys.stderr)
-        sys.exit(2)
-    return run
+def run_ganesha(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        "ganesha", description="Render a PLY mesh (ganesha) by progressive "
+        "photon mapping.")
+    add_ppm_args(parser)
+    parser.add_argument("-ganesha-ply", "--ganesha-ply", default="ganesha.ply",
+                        metavar="FILE", help="path to ganesha.ply")
+    parser.add_argument("-stop-after-bvh", "--stop-after-bvh",
+                        action="store_true", help="stop after BVH build")
+    args = parser.parse_args(argv)
+    device = torch.device(args.device)
+    _require_cuda_if_asked(device)
+
+    from .models import ganesha
+    from .ppm import PPMRenderer
+
+    print(f"dim = {args.width} x {args.height};")
+    t_total = time.monotonic()
+    t0 = time.monotonic()
+    scene, cam, lights, mesh = ganesha.build(
+        args.ganesha_ply, args.width / args.height, device)
+    build_ms = (time.monotonic() - t0) * 1e3
+    print(f"#triangles = {mesh.n_tris}")
+    print(f"tree depth = {mesh.depth}")
+    print(f"build time = {build_ms:.3f} ms")
+    bvh_bytes = (mesh.meta_np.nbytes + 2 * mesh.meta_np.shape[0] * 12
+                 + 3 * mesh.n_tris * 12)
+    print(f"bvh bytes = {bvh_bytes}  "
+          f"(the reference prints Obj.reachable_words here)")
+    hist = mesh.leaf_histogram()
+    print("leaf lengths =")
+    print(" ".join(f"((size {s})(count {c}))" for s, c in hist.items()))
+    if args.stop_after_bvh:
+        print("Stop after bvh build")
+        return
+    lo, hi = mesh.bbox_lo, mesh.bbox_hi
+    print(f"ganesha bbox = ((min({lo[0]:.6g} {lo[1]:.6g} {lo[2]:.6g}))"
+          f"(max({hi[0]:.6g} {hi[1]:.6g} {hi[2]:.6g})))")
+    renderer = PPMRenderer(scene, cam, lights, args.width, args.height,
+                           iterations=args.iterations,
+                           photon_count=args.photon_count, alpha=args.alpha,
+                           max_bounces=args.max_bounces,
+                           verbose=not args.no_progress, mesh=mesh)
+    renderer.render(output=args.output, checkpoint_path=args.checkpoint)
+    print(f"elapsed ms: {(time.monotonic() - t_total) * 1e3:.3f}")
+
+
+def run_ply_describe(argv=None) -> None:
+    """PLY inspection tool: the format, each element's properties, and per
+    column its range (or the face-size histogram of a list column)."""
+    parser = argparse.ArgumentParser("ply_describe",
+                                     description="Describe a PLY file.")
+    parser.add_argument("file", help="PLY file path")
+    args = parser.parse_args(argv)
+
+    import numpy as np
+
+    from .io import ply
+
+    t0 = time.monotonic()
+    p = ply.load(args.file)
+    parse_ms = (time.monotonic() - t0) * 1e3
+    print(f"format = {p.fmt}")
+    for el in p.elements:
+        print(f"element {el.name} (count {el.count})")
+        for pr in el.properties:
+            if pr.is_list:
+                print(f"  property list {pr.length_dtype} {pr.elt_dtype} "
+                      f"{pr.name}")
+            else:
+                print(f"  property {pr.dtype} {pr.name}")
+    for el, cols in p.data.items():
+        for name, col in cols.items():
+            if isinstance(col, list):
+                lens = {}
+                for row in col:
+                    lens[len(row)] = lens.get(len(row), 0) + 1
+                print(f"{el}.{name}: rows, face-size histogram = {lens}")
+            elif col.ndim == 2:
+                lens = {col.shape[1]: col.shape[0]}
+                print(f"{el}.{name}: rows, face-size histogram = {lens}")
+            elif np.issubdtype(col.dtype, np.floating):
+                finite = np.isfinite(col).all()
+                print(f"{el}.{name}: float min={col.min():.6g} "
+                      f"max={col.max():.6g} all-finite={finite}")
+            else:
+                print(f"{el}.{name}: int min={col.min()} max={col.max()}")
+    print(f"parse time = {parse_ms:.3f} ms")
 
 
 def main(argv=None) -> None:
@@ -174,9 +260,9 @@ def main(argv=None) -> None:
         "shirley_spheres": run_shirley,
         "cornell-box": run_cornell,
         "cornell_box": run_cornell,
-        "ganesha": _not_ported("ganesha"),
-        "ply-describe": _not_ported("ply-describe"),
-        "ply_describe": _not_ported("ply-describe"),
+        "ganesha": run_ganesha,
+        "ply-describe": run_ply_describe,
+        "ply_describe": run_ply_describe,
     }
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m pathtracer_tpu_torch <command> [args]\n"

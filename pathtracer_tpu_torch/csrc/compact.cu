@@ -15,8 +15,9 @@
 // rebuilt as position < k. The TPU kernel needed a log-step shift network
 // because the TPU has no per-lane scatter; here each lane scatters directly.
 //
-// Bound on this card: memory traffic, 11 planes read and 11 written per lane
-// (~88 bytes), once per compaction. Left for later PRs: fusing the compaction
+// Bound on this card: memory traffic, the alive word of every lane and 10
+// words of each live lane read, 11 words per lane written, once per
+// compaction. Left for later PRs: fusing the compaction
 // into the bounce that precedes it, and packing rows across blocks in the
 // same pass instead of the torch gather that follows.
 

@@ -1,8 +1,8 @@
 """Bounce-synchronous wavefront path tracer for sphere scenes, and the
 composite sphere + triangle intersector of the photon mapper.
 
-Port of pathtracer_tpu/integrator.py: make_intersector (without the mesh
-branch and the onehot select), the tiled pass (make_pass_fn's
+Port of pathtracer_tpu/integrator.py: make_intersector (with its mesh
+branch; without the onehot select), the tiled pass (make_pass_fn's
 32x32-tile-major ray order), the kernel wavefront (_trace_pallas2), the
 bounce-0 per-tile sphere lists (tile_sphere_lists, a numpy copy) and the
 render driver (make_render_fn). Sampling follows the JAX package:
@@ -36,8 +36,8 @@ from .ops import vec
 from .ops.cuda import compact_kernel as ck
 from .ops.cuda import fused_bounce_kernel as fbk
 from .ops.cuda.shade_kernel import pack_material_tables
-from .ops.cuda.sphere_kernel import (LANES, LIST_UNROLL, intersect_spheres,
-                                     pack_spheres)
+from .ops.cuda.sphere_kernel import (BIG, LANES, LIST_UNROLL,
+                                     intersect_spheres, pack_spheres)
 from .ops.cuda.tri_kernel import intersect_tris, pack_tris
 from .ops.frustum import tile_frustum_planes
 from .ops.lds import M32, Sampler
@@ -55,13 +55,24 @@ _TWO_PI_INV = _f32(0.5 / np.pi)
 _PI_INV = _f32(1.0 / np.pi)
 
 
-def make_intersector(scene: Scene):
+def make_intersector(scene: Scene, mesh=None, mesh_intersect=None):
     """Build hit_setup(org, d, alive) -> dict of per-lane hit attributes
-    over both pools of a mixed scene: the nearest sphere
-    (intersect_spheres) and the nearest triangle (intersect_tris), the
-    nearer of the two, and every shading input (point, flipped normal,
-    uv, material columns) by masked selects. org, d (N, 3) f32 with N a
-    multiple of 1024; alive (N,) bool drives the kernels' block early exit.
+    over both pools of a mixed scene, the nearest sphere (intersect_spheres)
+    and the nearest triangle (intersect_tris), and over an optional
+    triangle mesh (ops.bvh.MeshBVH): the nearest of them, and every shading
+    input (point, flipped normal, uv, material columns) by masked selects.
+    org, d (N, 3) f32 with N a multiple of 1024; alive (N,) bool drives the
+    kernels' block early exit.
+
+    The mesh walk (MeshBVH.intersect, the BVH8 walk kernel) is capped at the
+    pools' winner t, as the reference's floor-then-mesh intersect passes
+    the floor hit as the mesh query's t_max. mesh_intersect(org, d, alive)
+    -> (t, u, v, idx, hit) replaces the walk (the eye pass's tile-culled
+    kernel). A mesh winner's attributes come from one gather of the
+    mesh's (9, T) [a | e1 | e2] pack, its point is the barycentric
+    a + u e1 + v e2, its tex coords are (v, u + v) and its material the
+    mesh's row.
+
     Returns dict(hit, t, point, normal, hit_front, albedo, mat_kind, ior,
     ior_inv). The uv of a sphere hit uses torch.acos / torch.atan2, the
     library functions of the JAX code (not the polynomials of the path
@@ -72,6 +83,7 @@ def make_intersector(scene: Scene):
         tp = scene.tri_pack
         tri_table = pack_tris(tp[:, TRI_A], tp[:, TRI_E1], tp[:, TRI_E2],
                               scene.tri_valid)
+    has_mesh = mesh is not None
 
     def hit_setup(org, d, alive):
         at, idx_s, hit_s, inv_a = intersect_spheres(sph_table, org, d, alive)
@@ -88,6 +100,17 @@ def make_intersector(scene: Scene):
         else:
             use_tri = torch.zeros_like(hit_s)
             hit = hit_s
+        if has_mesh:
+            t_cur = torch.where(hit, torch.where(use_tri, t_t, t_s)
+                                if has_tris else t_s, BIG)
+            if mesh_intersect is not None:
+                t_m, u_m, v_m, idx_m, hit_m = mesh_intersect(org, d, alive)
+            else:
+                t_m, u_m, v_m, idx_m, hit_m = mesh.intersect(org, d, t_cur,
+                                                             alive)
+            use_mesh = hit_m & (t_m < t_cur)
+            use_tri = use_tri & ~use_mesh
+            hit = hit | hit_m
 
         point_s = org + t_s[:, None] * d
         n_s = vec.normalize(point_s - pk_rows[:, 0:3])
@@ -103,6 +126,16 @@ def make_intersector(scene: Scene):
             t = torch.where(use_tri, t_t, t_s)
         else:
             point, g_normal, t = point_s, n_s, t_s
+        if has_mesh:
+            # one gather, made row-major: the kernels of the next bounce
+            # take the hit point's layout as their rays' and want it dense
+            cols = mesh.tri_pack9[:, idx_m.long()].T.contiguous()  # (N, 9)
+            ma, me1, me2 = cols[:, 0:3], cols[:, 3:6], cols[:, 6:9]
+            point_m = ma + u_m[:, None] * me1 + v_m[:, None] * me2
+            n_m = vec.normalize(vec.cross(me1, me2))
+            point = vec.where3(use_mesh, point_m, point)
+            g_normal = vec.where3(use_mesh, n_m, g_normal)
+            t = torch.where(use_mesh, t_m, t)
 
         hit_front = vec.dot(d, g_normal) < 0.0
         normal = vec.where3(hit_front, g_normal, -g_normal)
@@ -123,6 +156,12 @@ def make_intersector(scene: Scene):
             u_tex = torch.where(use_tri, tri_u, u_tex)
             v_tex = torch.where(use_tri, tri_v, v_tex)
             mat_rows = torch.where(use_tri[:, None], tri_rows[:, TRI_MAT],
+                                   mat_rows)
+        if has_mesh:
+            # the mesh's fixed (t00, t01, t11) tex corners: tu = v, tv = u+v
+            u_tex = torch.where(use_mesh, v_m, u_tex)
+            v_tex = torch.where(use_mesh, u_m + v_m, v_tex)
+            mat_rows = torch.where(use_mesh[:, None], mesh.mat_row_t[None, :],
                                    mat_rows)
 
         albedo = eval_texture(mat_rows[:, 1], mat_rows[:, 2:5],

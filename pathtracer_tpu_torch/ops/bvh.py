@@ -1,0 +1,136 @@
+"""Triangle-mesh BVH: the host-side build and the mesh container.
+
+Port of the host side of pathtracer_tpu/ops/bvh.py for the BVH8 walk only:
+the binned-SAH build (native.bvh_build), build_walk_table8 (the BVH8
+re-entry walk table, native, plus its reciprocal-scale columns) and
+MeshBVH (walk="bvh8"). The walk itself is the CUDA kernel of
+ops/cuda/bvh_walk_kernel.py (csrc/bvh8_walk.cu); MeshBVH.intersect calls
+it. The python builders, the BVH4 and octant tables and the skip-link walk
+are not ported: a mesh past the 24-bit entry range of the BVH8 table
+raises.
+
+Walk-table layout (R, 32) f32, int columns as raw int32 bits:
+  node rows [0, node_end): cols 0-2 frame origin (the node's box lo), 3-5
+    per-axis scale (extent / 254), 6-17 48 uint8 quantized child bounds
+    (byte 2*(3i+a) = qlo of child i, axis a; byte 2*(3i+a)+1 = qhi), 18-23 8
+    entry pointers packed 24-bit little-endian (entry = row*8, bit 0 the
+    last-child flag), 24 the exit pointer, 25 the arity, 26-28 the
+    reciprocal scale. Octant o's rows are [o*stride, (o+1)*stride).
+  triangle-pair rows [node_end, R-1): cols 0-8 a, e1, e2 of the first
+    triangle, 9 its index, 10 the last-pair flag (1.0), 12-20 and 21 the
+    second triangle (zero when the leaf's count is odd).
+  row R-1: all zero, the absorbing done row.
+Pointers are row*8 + phase.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import native
+from .cuda.bvh_walk_kernel import bvh8_walk
+
+__all__ = ["build_walk_table8", "MeshBVH"]
+
+
+def build_walk_table8(nodes_lo, nodes_hi, meta, axes, tri_a, tri_e1, tri_e2):
+    """The BVH8 re-entry walk table (layout in the module docstring).
+    Returns (table (R, 32) f32, node_end, stride) in rows."""
+    table, node_end, stride = native.bvh8_table(nodes_lo, nodes_hi, meta,
+                                                axes, tri_a, tri_e1, tri_e2)
+    # reciprocal scale of node rows (triangle rows keep cols 22-31 zero)
+    sc = table[:node_end, 3:6]
+    table[:node_end, 26:29] = np.divide(np.float32(1.0), sc,
+                                        out=np.zeros_like(sc), where=sc > 0)
+    return table, node_end, stride
+
+
+# host arrays of a MeshBVH, the ones from_numpy carries across
+_HOST_FIELDS = ("nodes_lo", "nodes_hi", "meta_np", "tri_a", "tri_e1",
+                "tri_e2", "mat_row", "table")
+
+
+class MeshBVH:
+    """A triangle mesh with its BVH8 walk table and one material row (the
+    ganesha mesh pattern).
+
+    Vertices must already be in camera space; mat_row is the 12-column
+    material layout of scene.TRI_MAT. watertight declares the mesh a closed
+    surface seen from outside, the precondition for back-face culling the
+    tile lists (never inferred). The host arrays stay numpy; the walk
+    table (`table`), the (9, T) winner-attribute pack [a | e1 | e2]
+    (`tri_pack9`) and the material row (`mat_row_t`) are tensors on
+    `device`."""
+
+    def __init__(self, vertices, faces, mat_row, device, watertight=False):
+        vertices = np.asarray(vertices, np.float32)
+        faces = np.asarray(faces, np.int64)
+        if faces.ndim != 2 or faces.shape[1] != 3:
+            raise ValueError(f"expected triangular faces, got {faces.shape}")
+        a = vertices[faces[:, 0]]
+        b = vertices[faces[:, 1]]
+        c = vertices[faces[:, 2]]
+        lo = np.minimum(np.minimum(a, b), c)
+        hi = np.maximum(np.maximum(a, b), c)
+        nodes_lo, nodes_hi, meta, order, depth, axes = native.bvh_build(lo,
+                                                                        hi)
+        a, b, c = a[order], b[order], c[order]
+        e1, e2 = b - a, c - a
+        table, node_end, stride = build_walk_table8(
+            nodes_lo, nodes_hi, meta, axes, a, e1, e2)
+        self._init(dict(nodes_lo=nodes_lo, nodes_hi=nodes_hi, meta_np=meta,
+                        tri_a=np.ascontiguousarray(a),
+                        tri_e1=np.ascontiguousarray(e1),
+                        tri_e2=np.ascontiguousarray(e2),
+                        mat_row=mat_row, table=table, node_end=node_end,
+                        stride=stride, depth=depth, watertight=watertight),
+                   device)
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, device) -> "MeshBVH":
+        """Build from the JAX MeshBVH's host arrays (a BVH8 walk), so both
+        packages walk the same table: `arrays` holds nodes_lo, nodes_hi,
+        meta_np, tri_a, tri_e1, tri_e2, mat_row, table (the JAX
+        `_table_np`), node_end, stride, depth and watertight."""
+        self = cls.__new__(cls)
+        self._init(arrays, device)
+        return self
+
+    def _init(self, arrays: dict, device):
+        host = {k: np.asarray(arrays[k]) for k in _HOST_FIELDS}
+        self.nodes_lo = host["nodes_lo"].astype(np.float32)
+        self.nodes_hi = host["nodes_hi"].astype(np.float32)
+        self.meta_np = host["meta_np"].astype(np.int32)
+        self.tri_a = host["tri_a"].astype(np.float32)
+        self.tri_e1 = host["tri_e1"].astype(np.float32)
+        self.tri_e2 = host["tri_e2"].astype(np.float32)
+        self.mat_row = host["mat_row"].astype(np.float32)
+        self.table_np = np.ascontiguousarray(host["table"], np.float32)
+        self.depth = int(arrays["depth"])
+        self.watertight = bool(arrays["watertight"])
+        self.n_tris = len(self.tri_a)
+        self.bbox_lo = self.nodes_lo[0].copy()
+        self.bbox_hi = self.nodes_hi[0].copy()
+        self.node_end = int(arrays["node_end"])
+        self.stride = int(arrays["stride"])
+        self.device = torch.device(device)
+        pack9 = np.concatenate([self.tri_a.T, self.tri_e1.T, self.tri_e2.T])
+        self.table = torch.as_tensor(self.table_np, device=self.device)
+        self.tri_pack9 = torch.as_tensor(np.ascontiguousarray(pack9),
+                                         device=self.device)
+        self.mat_row_t = torch.as_tensor(self.mat_row, device=self.device)
+
+    def intersect(self, org, d, t_max0, active):
+        """Nearest mesh hit of each ray no farther than t_max0 (the BVH8
+        walk kernel; its plain version for CPU tensors). org, d (N, 3) f32;
+        t_max0 (N,) f32; active (N,) bool. Returns (t, u, v, idx int32,
+        hit)."""
+        return bvh8_walk(self.table, org, d, t_max0, active, self.node_end,
+                         self.stride)
+
+    def leaf_histogram(self) -> dict:
+        """leaf size -> count (the reference's leaf_length_histogram)."""
+        meta = self.meta_np
+        sizes, counts = np.unique(meta[meta[:, 1] > 0, 1], return_counts=True)
+        return {int(s): int(c) for s, c in zip(sizes, counts)}

@@ -3,7 +3,8 @@
 Copy of pathtracer_tpu/ops/frustum.py (tile_frustum_planes). Primary rays all
 start at the camera-space origin, so a 32x32 image tile's rays lie inside the
 cone hulled by its 4 corner directions; the bounce-0 sphere lists
-(integrator.tile_sphere_lists) cull against these planes.
+(integrator.tile_sphere_lists) and the tile-culled triangle table
+(ops/cuda/tile_tri_kernel.build_tile_tri_table) cull against these planes.
 """
 
 from __future__ import annotations
@@ -14,13 +15,15 @@ __all__ = ["tile_frustum_planes"]
 
 
 def tile_frustum_planes(camera, width: int, height: int, tx_n: int, ty_n: int,
-                        *, flip_y: bool, tile: int = 32) -> np.ndarray:
-    """(T, 4, 3) f64 inward-pointing unit plane normals per tile: the 4
-    frustum side planes through the origin. (The JAX copy's with_z_plane
-    option serves only the tile-culled triangle kernel, not ported yet.)
+                        *, flip_y: bool, with_z_plane: bool = False,
+                        tile: int = 32) -> np.ndarray:
+    """(T, 4 or 5, 3) f64 inward-pointing unit plane normals per tile: the 4
+    frustum side planes through the origin, plus (with_z_plane) the z<=0
+    camera-facing halfspace.
 
     flip_y must match the consumer's film map: the path tracer's is
-    cy = 1 - y/H (flip_y=True).
+    cy = 1 - y/H (flip_y=True), the PPM eye pass's cy = y/H (flip_y=False,
+    the image is flipped when it is written).
 
     Corner pixel coords [x0, x0+tile] x [y0, y0+tile] cover every jittered
     sample (dx, dy in [0,1)) and the clamped coords of padded edge tiles.
@@ -48,4 +51,7 @@ def tile_frustum_planes(camera, width: int, height: int, tx_n: int, ty_n: int,
         nrm *= np.sign(np.sum(nrm * center, axis=1, keepdims=True))
         n_len = np.linalg.norm(nrm, axis=1, keepdims=True)
         planes.append(nrm / np.maximum(n_len, 1e-300))
+    if with_z_plane:
+        t_n = c00.shape[0]
+        planes.append(np.broadcast_to(np.array([0.0, 0.0, -1.0]), (t_n, 3)))
     return np.stack(planes, axis=1)

@@ -3,15 +3,19 @@
 Port of pathtracer_tpu/ppm.py's single-device kernel tier: the lights and
 their photon budgets, the photon pass (make_photon_pass), the eye pass with
 the chunk gather (make_eye_pass with use_kernel=True) and the iteration
-loop (PPMRenderer). Each iteration runs
+loop (PPMRenderer), for sphere and triangle pools and an optional triangle
+mesh (ops.bvh.MeshBVH, the ganesha scene). Each iteration runs
 
   1. the photon pass: emission, then max_bounces bounces of the composite
-     intersector (integrator.make_intersector) and the scatter, with a
-     fixed deposit slot per (bounce, lane) and Russian roulette by the
-     albedo's largest component;
+     intersector (integrator.make_intersector; a mesh rides its BVH8 walk
+     kernel) and the scatter, with a fixed deposit slot per (bounce, lane)
+     and Russian roulette by the albedo's largest component;
   2. gather_kernel.build_photon_chunks over the deposits;
   3. the eye pass over the whole image as one band: the specular walk,
-     recording each lane's first diffuse hit;
+     recording each lane's first diffuse hit. In a mesh scene whose eye
+     paths all end at their first hit, the mesh's eye rays go through the
+     tile-culled triangle kernel (ops/cuda/tile_tri_kernel.py) instead of
+     the walk, over a band of ceil(H/32)*32 rows;
   4. the hit Morton sort and block_chunk_lists;
   5. the gather kernel, then `finish` (cone-filter normalizer 1 - 2/3, the
      disk area and 1/photon_count);
@@ -27,8 +31,9 @@ init = ((bbox extent sum)/3 / ((W+H)/2))^2. The averaged image is written at
 gamma 1/2.2 after every iteration.
 
 Not ported: the XLA hash-grid gather (the plain chunk gather covers the
-CPU), the eye-walk compaction ladder (mesh scenes only), the sharded and
-ring photon maps, phase_cb and the environment knobs of the JAX renderer.
+CPU), the eye-walk compaction ladder (specular mesh scenes only), the
+sharded and ring photon maps, phase_cb and the environment knobs of the JAX
+renderer.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from typing import List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .camera import Camera
 from .integrator import make_intersector
@@ -48,6 +54,8 @@ from .io.png import write_png
 from .ops import quat as quat_ops
 from .ops import shading, vec
 from .ops.cuda import gather_kernel as gk
+from .ops.cuda import tile_tri_kernel as ttk
+from .ops.cuda.sphere_kernel import BIG
 from .ops.lds import M32, Sampler
 from .scene import TRI_MAT, Scene
 
@@ -153,18 +161,19 @@ def _specular(h, omega_i, u):
 
 
 def make_photon_pass(scene: Scene, lights, photon_count: int,
-                     max_bounces: int):
+                     max_bounces: int, mesh=None):
     """Build trace_photons(offset_base: int) -> (pos, nrm, flux, valid,
     segments): deposits of shape (lanes * max_bounces, .) in (bounce, lane)
     order, and the ray segments traced (a 0-dim tensor);
-    trace_photons.emit(offset_base) gives the bounce-0 rays. Returns
+    trace_photons.emit(offset_base) gives the bounce-0 rays. mesh: an
+    optional ops.bvh.MeshBVH beside the scene's pools. Returns
     (trace_photons, photons traced, deposit rows)."""
     sampler = Sampler(2 + 2 * max_bounces)
     counts, starts, total = light_photon_counts(lights, photon_count)
     lanes = -(-total // 1024) * 1024
     dev = scene.center.device
     lane_ids = torch.arange(lanes, dtype=torch.int64, device=dev)
-    hit_setup = make_intersector(scene)
+    hit_setup = make_intersector(scene, mesh)
 
     def emit(offset_base: int):
         """Bounce-0 photon rays: (offs, org, d, flux, alive)."""
@@ -221,35 +230,60 @@ def make_photon_pass(scene: Scene, lights, photon_count: int,
     return trace_photons, total, lanes * max_bounces
 
 
-def scene_all_diffuse(scene: Scene) -> bool:
-    """True when no valid primitive has a specular (metal/dielectric)
-    material: then every eye path ends at its first hit."""
+def scene_all_diffuse(scene: Scene, mesh=None) -> bool:
+    """True when no valid primitive (nor the mesh) has a specular
+    (metal/dielectric) material: then every eye path ends at its first
+    hit."""
     if bool((scene.mat_kind[scene.valid] != 0).any()):
         return False
     if scene.tri_count:
         mk = scene.tri_pack[scene.tri_valid][:, TRI_MAT.start]
         if bool((mk != 0).any()):
             return False
-    return True
+    return mesh is None or float(mesh.mat_row[0]) == 0.0
 
 
 def make_eye_pass(camera: Camera, width: int, height: int,
                   max_bounces: int, photon_count: int, scene: Scene,
-                  eff_bounces: int = None):
+                  eff_bounces: int = None, mesh=None, tile=None):
     """Build eye_pass(offset_base: int, radius: float, grid) -> the
     iteration's image contribution (H, W, 3) f32, rows in camera order
     (not flipped), scaled by 1/photon_count; grid = (photons_t, sbox) from
-    build_photon_chunks. The whole image is one band of ceil(W*H/1024)*1024
-    lanes (lane = y*W + x).
+    build_photon_chunks. The whole image is one band of
+    ceil(W*rows/1024)*1024 lanes (lane = y*W + x; rows = H, or
+    ceil(H/32)*32 with the tile kernel, whose lanes in rows >= H are dead).
 
     eff_bounces caps the specular walk: in a scene with no specular
     material every eye path ends at its first hit; the sampler keeps
-    max_bounces dimensions either way. eye_pass.primary, .walk, .gather and
-    .finish are the stages, for tests and measurement."""
+    max_bounces dimensions either way. mesh: an optional ops.bvh.MeshBVH.
+    tile: (table, tile_chunk_start, tile_chunk_src) tensors of the mesh's
+    TileTriTable (TileTriTable.tensors), allowed only when eff_bounces is
+    1: the eye rays then meet the mesh through intersect_tile_tris instead
+    of the walk. eye_pass.primary, .walk, .gather and .finish are the
+    stages, for tests and measurement."""
     sampler = Sampler(2 + max_bounces)
     eff_bounces = max_bounces if eff_bounces is None else eff_bounces
+    rows = height
+    mesh_intersect = None
+    if tile is not None:
+        if mesh is None or eff_bounces != 1:
+            raise ValueError("make_eye_pass: the tile lists need a mesh and "
+                             "hold only for origin-zero primaries "
+                             "(eff_bounces == 1)")
+        rows = -(-height // ttk.TILE) * ttk.TILE
+
+        def mesh_intersect(org, d, alive_m):
+            # primaries start at the origin, so org is unused; lanes past
+            # the band's rows*W read as misses
+            n = rows * width
+            t, u, v, idx = ttk.intersect_tile_tris(*tile, d[:n], width)
+            pad = d.shape[0] - n
+            t = F.pad(t, (0, pad), value=BIG)
+            u, v, idx = (F.pad(x, (0, pad)) for x in (u, v, idx))
+            return t, u, v, idx, (t < BIG) & alive_m
+
     n_pix = width * height
-    lanes = -(-n_pix // 1024) * 1024
+    lanes = -(-(width * rows) // 1024) * 1024
     dev = scene.center.device
     lane_ids = torch.arange(lanes, dtype=torch.int64, device=dev)
     xs = (lane_ids % width).to(torch.float32)
@@ -258,7 +292,7 @@ def make_eye_pass(camera: Camera, width: int, height: int,
     inv_w, inv_h = _f32(1.0 / width), _f32(1.0 / height)
     inv_pc = _f32(1.0 / photon_count)
     normalizer = np.float32(1.0 - 2.0 / 3.0)
-    hit_setup = make_intersector(scene)
+    hit_setup = make_intersector(scene, mesh, mesh_intersect)
 
     def primary(offset_base: int):
         """Bounce-0 eye rays: (offs, org, d, alive). Eye rays are not
@@ -343,7 +377,15 @@ def make_eye_pass(camera: Camera, width: int, height: int,
 class PPMRenderer:
     """The iteration loop. render() returns the sum of the iterations'
     images, (H, W, 3) float64 on the scene's device; divide by the
-    iteration count for the averaged linear image."""
+    iteration count for the averaged linear image.
+
+    mesh: an optional ops.bvh.MeshBVH beside the scene's pools (ganesha);
+    the initial radius then comes from the mesh's box instead of the
+    scene's. tile_primary: the eye rays meet the mesh through the
+    tile-culled kernel whenever there is a mesh and every eye path ends at
+    its first hit (True, on every device), or through the walk (False).
+    The tile table is built once per renderer, back-face culled when the
+    mesh is watertight."""
 
     scene: Scene
     camera: Camera
@@ -355,12 +397,31 @@ class PPMRenderer:
     alpha: float = 2.0 / 3.0
     max_bounces: int = 4
     verbose: bool = True
+    mesh: object = None
+    tile_primary: bool = True
 
     def __post_init__(self):
-        lo, hi = self.scene.bbox()
+        self.tile_table = self._tile = None
+        if self.mesh is not None:
+            lo = self.mesh.bbox_lo.astype(np.float64)
+            hi = self.mesh.bbox_hi.astype(np.float64)
+        else:
+            lo, hi = self.scene.bbox()
         a = float((hi - lo).sum()) / 3.0
         b = (self.width + self.height) / 2.0
         self.init_radius2 = (a / b) ** 2
+
+    def tile_tensors(self, eff_bounces: int):
+        """The tile table's tensors on the scene's device when the eye
+        pass uses the tile kernel, else None; built on the first call."""
+        use = self.tile_primary and self.mesh is not None and eff_bounces == 1
+        if use and self._tile is None:
+            self.tile_table = ttk.build_tile_tri_table(
+                self.camera, self.mesh.tri_a, self.mesh.tri_e1,
+                self.mesh.tri_e2, self.width, self.height, bvh=self.mesh,
+                backface_cull=self.mesh.watertight)
+            self._tile = self.tile_table.tensors(self.scene.center.device)
+        return self._tile if use else None
 
     def radius(self, i: int) -> float:
         """The gather radius of iteration i (1-based)."""
@@ -390,12 +451,14 @@ class PPMRenderer:
             print(f"#iterations = {self.iterations}")
             print("-----", flush=True)
         trace_photons, _, _ = make_photon_pass(
-            self.scene, self.lights, self.photon_count, self.max_bounces)
-        eff_bounces = (1 if scene_all_diffuse(self.scene)
+            self.scene, self.lights, self.photon_count, self.max_bounces,
+            self.mesh)
+        eff_bounces = (1 if scene_all_diffuse(self.scene, self.mesh)
                        else self.max_bounces)
         eye_pass = make_eye_pass(self.camera, self.width, self.height,
                                  self.max_bounces, self.photon_count,
-                                 self.scene, eff_bounces)
+                                 self.scene, eff_bounces, self.mesh,
+                                 self.tile_tensors(eff_bounces))
         dev = self.scene.center.device
         img_sum = torch.zeros(self.height, self.width, 3,
                               dtype=torch.float64, device=dev)

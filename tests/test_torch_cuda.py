@@ -20,7 +20,13 @@ gather) must equal their plain versions exactly too. The cornell render on
 the card is held to the same render on the CPU: photon map lengths within
 0.5% and image RMSE <= 1e-3. Not bit-equal, because the glue's
 sin/cos/acos may differ by an ulp between the devices and flip a few photon
-paths."""
+paths.
+
+The mesh kernels (the BVH8 walk, the tile-culled triangle kernel) must
+equal their plain versions exactly too, on a random triangle soup with
+rays of exact-zero direction components and on a small uv-sphere with
+empty tiles. The ganesha render on the card is held to the CPU render by
+the cornell bounds."""
 
 import os
 
@@ -236,3 +242,161 @@ def test_ppm_wrappers_refuse_malformed_input(dev):
         gk.gather_flux_chunks(org, org, alive,
                               torch.zeros(6, 8, device=dev),
                               torch.zeros(16, 128, device=dev), 0.1)
+
+
+def _soup(dev, n=150, seed=5):
+    """A random triangle soup as a MeshBVH on the card."""
+    from pathtracer_tpu_torch.ops.bvh import MeshBVH
+
+    rs = np.random.RandomState(seed)
+    verts = rs.uniform(-5, 5, (n, 3))
+    faces = rs.randint(0, n, (2 * n, 3))
+    faces = faces[(faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
+                  & (faces[:, 0] != faces[:, 2])]
+    return MeshBVH(verts, faces, np.zeros(12, np.float32), dev)
+
+
+def _uv_sphere(radius=45.0):
+    """A closed 12x8 uv-sphere of 168 triangles where the ganesha camera
+    looks: (vertices, faces)."""
+    us = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+    vs = np.linspace(1e-3, np.pi - 1e-3, 8)
+    uu, vv = np.meshgrid(us, vs, indexing="ij")
+    verts = np.stack([np.sin(vv) * np.cos(uu), np.cos(vv),
+                      np.sin(vv) * np.sin(uu)], -1).reshape(-1, 3)
+    verts = radius * verts + np.array([328.0, 60.0, 150.0])
+    faces = [[i * 8 + j, (i + 1) % 12 * 8 + j, i * 8 + j + 1]
+             for i in range(12) for j in range(7)]
+    faces += [[(i + 1) % 12 * 8 + j, (i + 1) % 12 * 8 + j + 1, i * 8 + j + 1]
+              for i in range(12) for j in range(7)]
+    return verts, np.array(faces)
+
+
+def test_bvh8_walk_kernel_matches_plain(dev):
+    """4,096 random rays (t_max0 3 or 1e30, a quarter inactive), and 1,024
+    with exact-zero direction components, half of them on the root box's
+    low plane of a zeroed axis (0 * inf = NaN must miss)."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    m = _soup(dev)
+    rs = np.random.RandomState(7)
+    n, nz = 4096, 1024
+    org = rs.uniform(-8, 8, (n + nz, 3)).astype(np.float32)
+    d = rs.randn(n + nz, 3).astype(np.float32)
+    t_max = np.where(rs.rand(n + nz) < 0.5, 3.0, 1e30).astype(np.float32)
+    active = rs.rand(n + nz) > 0.25
+    for i in range(n, n + nz):
+        axes = [i % 3] if i % 2 else [i % 3, (i + 1) % 3]
+        d[i, axes] = 0.0
+        active[i] = True
+        if i >= n + nz // 2:
+            org[i, axes[0]] = m.bbox_lo[axes[0]]
+    args = [torch.from_numpy(x).to(dev) for x in (org, d, t_max, active)]
+    before = bw.bvh8_walk.launches
+    got = bw.bvh8_walk(m.table, *args, m.node_end, m.stride)
+    assert bw.bvh8_walk.launches == before + 1
+    want = bw.bvh8_walk_plain(m.table, *args, m.node_end, m.stride)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+    hit = got[4]
+    assert 100 < int(hit.sum()) < n + nz - 100
+    assert int(hit[n:].sum()) > 4 and not bool(hit[~args[3]].any())
+
+
+def test_intersect_tile_tris_kernel_matches_plain(dev):
+    """A small 12x8 uv-sphere under the ganesha camera at 88x96: tiles with
+    lists, empty tiles (the shared zero chunk) and a partial last tile
+    column."""
+    from pathtracer_tpu_torch.models import ganesha
+    from pathtracer_tpu_torch.ops.bvh import MeshBVH
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+
+    w, h = 88, 96
+    verts, faces = _uv_sphere(radius=15.0)
+    cam = ganesha.make_camera(w / h)
+    m = MeshBVH(cam.transform_points(verts), faces,
+                np.zeros(12), dev, watertight=True)
+    tt = ttk.build_tile_tri_table(cam, m.tri_a, m.tri_e1, m.tri_e2, w, h,
+                                  bvh=m, backface_cull=True)
+    empty = tt.tile_chunk_src == tt.zero_chunk
+    assert empty.any() and not empty.all()
+    rng = np.random.default_rng(3)
+    lane = torch.arange(w * h, device=dev)
+    cx = ((lane % w).float() + torch.from_numpy(rng.random(w * h, np.float32))
+          .to(dev)) * np.float32(1.0 / w)
+    cy = ((lane // w).float() + torch.from_numpy(rng.random(w * h, np.float32))
+          .to(dev)) * np.float32(1.0 / h)
+    d = cam.ray_dirs(cx, cy).contiguous()
+    tabs = tt.tensors(dev)
+    before = ttk.intersect_tile_tris.launches
+    got = ttk.intersect_tile_tris(*tabs, d, w)
+    assert ttk.intersect_tile_tris.launches == before + 1
+    want = ttk.intersect_tile_tris_plain(*tabs, d, w)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x), (g.float() - x.float()).abs().max()
+    hit = got[0] < ttk.BIG
+    assert 50 < int(hit.sum()) < w * h - 50
+    assert not bool(got[1][~hit].any()) and not bool(got[3][~hit].any())
+
+
+def test_ganesha_card_render_matches_cpu(dev):
+    """A 64x64, 1-iteration, 2,000-photon, 3-bounce render of the 168-
+    triangle uv-sphere ganesha on the card (all five kernels) and on the
+    CPU: photon map lengths within 0.5%, image RMSE <= 1e-3."""
+    import tempfile
+
+    from pathtracer_tpu_torch.io import ply
+    from pathtracer_tpu_torch.models import ganesha
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+
+    verts, faces = _uv_sphere()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tiny_ganesha.ply")
+        ply.write_mesh(path, verts, faces)
+
+        def render(device):
+            scene, cam, lights, mesh = ganesha.build(path, 1.0, device)
+            r = ppm.PPMRenderer(scene, cam, lights, 64, 64, iterations=1,
+                                photon_count=2000, max_bounces=3,
+                                verbose=False, mesh=mesh)
+            img = r.render().cpu().numpy()
+            return img, [int(n) for n in r.photon_map_lengths]
+
+        counters = (sk.intersect_spheres, tk.intersect_tris,
+                    gk.gather_flux_chunks, bw.bvh8_walk,
+                    ttk.intersect_tile_tris)
+        for fn in counters:
+            fn.launches = 0
+        img_k, n_k = render(dev)
+        assert all(fn.launches > 0 for fn in counters)
+        img_c, n_c = render(torch.device("cpu"))
+    rmse = float(np.sqrt(np.mean((img_k - img_c) ** 2)))
+    print(f"ganesha 64x64 card vs cpu: photon map lengths {n_k} vs {n_c}, "
+          f"rmse {rmse:.3e}, max {np.abs(img_k - img_c).max():.3e}")
+    assert np.isfinite(img_k).all() and img_k.max() > 0
+    for a, b in zip(n_k, n_c):
+        assert abs(a - b) <= 0.005 * b, (n_k, n_c)
+    assert rmse <= 1e-3, rmse
+
+
+def test_mesh_wrappers_refuse_malformed_input(dev):
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+
+    m = _soup(dev)
+    org = torch.zeros(8, 3, device=dev)
+    on = torch.ones(8, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):  # rays on the CPU
+        bw.bvh8_walk(m.table, org.cpu(), org, torch.zeros(8, device=dev), on,
+                     m.node_end, m.stride)
+    with pytest.raises(ValueError):  # not contiguous
+        bw.bvh8_walk(m.table, org.t().contiguous().t(), org,
+                     torch.zeros(8, device=dev), on, m.node_end, m.stride)
+    table = torch.zeros(16, 256, device=dev)
+    start = torch.arange(2, dtype=torch.int32, device=dev)
+    d = torch.zeros(32 * 32, 3, device=dev)
+    with pytest.raises(ValueError):  # int64 chunk sources
+        ttk.intersect_tile_tris(table, start, start[:1].long(), d, 32)
+    with pytest.raises(ValueError):  # table on the CPU
+        ttk.intersect_tile_tris(table.cpu(), start, start[:1], d, 32)

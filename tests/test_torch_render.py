@@ -136,15 +136,19 @@ def test_cli_interpreter_renders_on_cpu_only(tmp_path):
 
 
 def test_cli_refuses_missing_cuda_and_unported_scenes():
+    """Without a card every render command asks for --device cpu; every
+    scene of the JAX CLI is ported now, and ply-describe refuses a missing
+    file argument."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(["shirley-spheres", "--dimension=64,32"])
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(["cornell-box", "-width", "32", "-height", "32"])
-    for cmd in ("ganesha", "ply-describe"):
-        with pytest.raises(SystemExit) as e:
-            cli.main([cmd])
-        assert e.value.code != 0
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(["ganesha", "-ganesha-ply", "scenes/test_ganesha.ply"])
+    with pytest.raises(SystemExit) as e:
+        cli.main(["ply-describe"])
+    assert e.value.code != 0
 
 
 def test_port_imports_no_jax():
