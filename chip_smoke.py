@@ -10,13 +10,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, which it must equal exactly, at the shapes of the canonical render (600x300 in 32x32 tiles:
      190 tiles, 194,560 rays), with times (median of 7 after a warm-up,
-     CUDA events);
+     CUDA events); then the two-kernel bounce's intersect_state (bounce 0
+     listed and origin-zero, bounce 1 full) and shade_state against their
+     plain versions, and their chain against fused_bounce, all equal, with
+     the host's microseconds per call of the three wrappers;
   4. main path: `shirley-spheres 600x300 spp=32 b=8` through make_render_fn
      (what the CLI calls), with the kernels' launch counts, the segment
      count and the RMSE against the committed float64 oracle, the median
      wall time of 5 warm renders, and one profiled render's device time by
      kernel and idle share of its own wall (full table in
      chiprun_out/render_profile.txt);
+  4b. two-kernel render: the same render with fuse_bounce=False, with the
+     two kernels' launch counts (fused_bounce: none), its segments and
+     image equal to the fused render's, its RMSE against the oracle, the
+     median wall of 6 warm renders beside 6 of the fused render, the two
+     alternated, and one profiled render's device time by kernel;
+  4c. clustered: intersect_clustered on shirley's 178 clusters against its
+     plain version on the bounce-1 rays of phase 3 (equal), then against
+     intersect_spheres on the same rays (hit and at equal on every live
+     lane, and on every lane with all lanes alive; idx mismatches printed),
+     with both kernels' times and the work its bound counts;
   5. CLI: `python -m pathtracer_tpu_torch shirley-spheres ...` writes a
      600x300 PNG (to chiprun_out/);
   6. PPM kernels: the photon mapper's three kernels against their plain
@@ -26,7 +39,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
      hits at r(1), the kernel over all 352 blocks and the plain version on
      32 of them (the 16 with the longest chunk lists and 16 evenly spaced
      others; blocks are independent), with times (CUDA events, and device
-     time from the profiler);
+     time from the profiler); then the raster-grid gather on the same
+     photons and eye hits: the grid from ppm._build_grid_morton_device,
+     query_tables, hits sorted by their cell's Morton key, gather_flux on
+     all blocks against its plain version on 32 (the 16 with the longest
+     ranges and 16 spaced), equal, and on all lanes against
+     gather_flux_chunks (the same photons summed in another order: rtol
+     1e-4, atol 1e-6), with times and cell / r;
   7. cornell render: `cornell-box 600x600, 10 iterations, 75,000 photons,
      4 bounces` through PPMRenderer.render (what the CLI calls), with the
      three kernels' launch counts, the first iteration's seconds and the
@@ -67,7 +86,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
      `ply-describe scenes/test_ganesha.ply` runs.
 Each kernel's bound_ms in the JSON line is the larger of the bytes it must
 move over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
-from this run's inputs (OPS below).
+from this run's inputs (OPS below). The clustered kernel and the raster
+gather are on no render path: their counts are set to 0 with the path's
+own before each of the four main-path renders (4, 4b, 7, 11), read after
+it, and must stay 0.
 Then a JSON line of kernel results, the nvidia-smi line, and the final
 `{"ok": true, "device": {...}}` line. Without a CUDA device, or without the
 package beside this script, it fails before printing any result.
@@ -130,14 +152,21 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3
 FP32_OPS_PER_MS = 67e12 / 1e3
 # float32 operations per unit of work, counted in the CUDA sources
 # (compares and integer work not counted): a ray-sphere test of
-# intersect_spheres.cu (20) and of fused_bounce.cu (18; 9 for its
-# origin-zero bounce 0 over the per-block lists), a ray-triangle
-# test of intersect_tris.cu and bvh8_walk.cu (46) and of the origin-zero
-# intersect_tile_tris.cu (44), a hit-photon pair of gather_chunks.cu (22),
-# and a node row of bvh8_walk.cu (185: 9 for the ray's frame, 8 children x
-# 3 axes x 6 slab operations, 32 for the children's min/max reductions).
-OPS = dict(sphere=20, fused_sphere=18, listed_sphere=9, tri=46,
-           tile_tri=44, gather=22, node=185)
+# intersect_spheres.cu and intersect_clustered.cu (20) and of the sphere
+# loop of pt_bounce.cuh, which fused_bounce.cu and intersect_state.cu run
+# (18; 9 for the origin-zero bounce 0 over the per-block lists), a
+# ray-cluster cull test of intersect_clustered.cu (17), the shading of a
+# lane that hit (shade_lane of pt_bounce.cuh, ~300 with sinf and cosf at
+# 20 each) and of one that missed (17), a ray-triangle test of
+# intersect_tris.cu and bvh8_walk.cu (46) and of the origin-zero
+# intersect_tile_tris.cu (44), a hit-photon pair of gather_chunks.cu and
+# gather_flux.cu (22), and a node row of bvh8_walk.cu (185: 9 for the ray's
+# frame, 8 children x 3 axes x 6 slab operations, 32 for the children's
+# min/max reductions).
+OPS = dict(sphere=20, fused_sphere=18, listed_sphere=9, cull=17, shade=300,
+           shade_miss=17, tri=46, tile_tri=44, gather=22, node=185)
+# blocks the plain raster gather is held on
+RASTER_LONGEST = RASTER_SPACED = 16
 # Kernel vs plain on the card: none. The kernels are built without FMA
 # contraction and fast math and round every operation as the plain versions
 # do, so state, radiance and alive flags must be equal. (The 1e-2 / 1e-6
@@ -145,9 +174,13 @@ OPS = dict(sphere=20, fused_sphere=18, listed_sphere=9, tri=46,
 # XLA, which contracts FMAs.)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-          flush=True)
+    """Print one phase line, led by the seconds since the script started."""
+    print(f"[{name}] t={time.perf_counter() - T_START:.1f}s "
+          + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -188,6 +221,43 @@ def time_ms(torch, fn, reps: int = 7, batch: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def time_cold_ms(torch, fn, reps: int = 7) -> float:
+    """Median CUDA-event ms of one call of fn with the L2 cache flushed
+    before it: a 256 MB fill, then a ~2 ms device sleep that holds the
+    stream while the host enqueues fn, so the events time fn's kernels
+    alone, not the host's launch cost."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(4_000_000)  # cycles: ~2 ms at the H100's clocks
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(torch, fn, calls: int = 100) -> float:
+    """Host microseconds per call of fn over `calls` calls enqueued with no
+    synchronisation between them: the wrapper's own cost (checks,
+    allocations, the launch), as long as fewer launches than the stream's
+    queue holds are pending."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
 
 
 def device_times(torch, fn, reps: int = 10):
@@ -297,10 +367,357 @@ def compare(torch, name, fn_k, fn_p, what, kernel, plain_reps=7,
     return err, kms, pms, want
 
 
+def no_path_kernels() -> dict:
+    """The wrappers of the kernels that no renderer calls (the clustered
+    sphere kernel, the raster gather), by name. Each main-path render sets
+    their counts to 0 just before it, with its own, and reads them just
+    after (read_no_path)."""
+    from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+    return {"intersect_clustered": sk.intersect_clustered,
+            "gather_flux": gk.gather_flux}
+
+
+# {render path: {no-path kernel: launches in that render}}
+NO_PATH_LAUNCHES = {}
+
+
+def read_no_path(path: str, launches: dict) -> None:
+    """Move the no-path kernels' counts out of one render's `launches` into
+    NO_PATH_LAUNCHES[path]."""
+    NO_PATH_LAUNCHES[path] = {k: launches.pop(k) for k in no_path_kernels()}
+
+
+def listed_pairs(torch, r, state):
+    """Ray-sphere pairs of a listed bounce-0 sphere loop over `state`: each
+    live ray against its block's distinct list entries (a list is padded
+    with repeats of its first)."""
+    live_blk = (state[9] > 0).reshape(-1, 1024).sum(dim=1)
+    n_list = torch.tensor([len(set(row[:c].tolist())) for row, c in zip(
+        r.lists.cpu(), r.counts[:, 0].tolist())], device=state.device)
+    return int((live_blk * n_list).sum())
+
+
+def two_kernel_kernels(torch, r, fb_in, off, bg, n_sph):
+    """Phase 3, second half: intersect_state and shade_state against their
+    plain versions at bounce 0 (listed, origin-zero) and bounce 1 (full),
+    and the chain of the two kernels against fused_bounce; all equal.
+    Returns {bounce: (intersect (err, ms, plain_ms), its bound, shade
+    (err, ms, plain_ms), its bound)}."""
+    from pathtracer_tpu_torch.ops.cuda import fused_bounce_kernel as fbk
+    from pathtracer_tpu_torch.ops.cuda import shade_kernel as shk
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+
+    bg_mode, colors = bg
+    out = {}
+    for b, listed in ((0, True), (1, False)):
+        state = fb_in[b]
+        n = state.shape[1] * state.shape[2]
+        kw = dict(origin_zero=b == 0,
+                  block_lists=(r.lists, r.counts) if listed else None)
+        limbs = r.sampler.limbs(2 + 2 * b, 3 + 2 * b)
+        rad0 = torch.zeros(3, *state.shape[1:], device=state.device)
+        what = f"bounce{b}_{'listed' if listed else 'full'}:{n}_lanes"
+        i_res = compare(
+            torch, "intersect_state",
+            lambda: sk.intersect_state(r.sph_table, state, **kw),
+            lambda: sk.intersect_state_plain(r.sph_table, state, **kw),
+            what, kernel="intersect_state_kernel")[:3]
+        at, idx = sk.intersect_state(r.sph_table, state, **kw)
+        args = (state, r.pack_table, idx, off, at, limbs, colors, rad0)
+        s_res = compare(
+            torch, "shade_state",
+            lambda: shk.shade_state(*args, bg_mode=bg_mode),
+            lambda: shk.shade_state_plain(*args, bg_mode=bg_mode), what,
+            kernel="shade_kernel")[:3]
+        chain = shk.shade_state(*args, bg_mode=bg_mode)
+        fused = fbk.fused_bounce(r.sph_table, state, r.pack_table, off,
+                                 limbs, colors, rad0, bg_mode=bg_mode, **kw)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(c, f) for c, f in zip(chain, fused))
+        # the two kernels' device time with their inputs out of L2 (the
+        # bytes bound assumes them in device memory)
+        cold = (time_cold_ms(torch, lambda: sk.intersect_state(
+                    r.sph_table, state, **kw)),
+                time_cold_ms(torch, lambda: shk.shade_state(
+                    *args, bg_mode=bg_mode)))
+        # the host's cost of each wrapper call, which a render pays per
+        # bounce: one fused call against the two of the two-kernel bounce
+        host = {"intersect_state": host_us(torch, lambda: sk.intersect_state(
+                    r.sph_table, state, **kw)),
+                "shade_state": host_us(torch, lambda: shk.shade_state(
+                    *args, bg_mode=bg_mode)),
+                "fused_bounce": host_us(torch, lambda: fbk.fused_bounce(
+                    r.sph_table, state, r.pack_table, off, limbs, colors,
+                    rad0, bg_mode=bg_mode, **kw))}
+        phase("two_kernel_chain", shape=what, equal_to_fused_bounce=equal,
+              intersect_state_cold_l2_ms=f"{cold[0]:.4f}",
+              shade_state_cold_l2_ms=f"{cold[1]:.4f}",
+              host_us_per_call=json.dumps({k: round(v, 2)
+                                           for k, v in host.items()}))
+        require(equal, f"bounce {b}: intersect_state -> shade_state differs "
+                "from fused_bounce")
+        # bytes: intersect_state reads the origin, direction and alive
+        # planes and writes (at, idx); shade_state reads the state, the
+        # radiance, at, idx and the offsets and writes state and radiance
+        live = state[9] > 0
+        n_live = int(live.sum())
+        n_hit = int(((at < sk.BIG) & live).sum())
+        pairs = (listed_pairs(torch, r, state) * OPS["listed_sphere"]
+                 if listed else n_live * n_sph * OPS["fused_sphere"])
+        i_bound = bound(n * 4 * (7 + 2) + r.sph_table.numel() * 4
+                        + (r.lists.numel() * 4 if listed else 0), pairs)
+        s_bound = bound(n * 4 * (16 + 13) + r.pack_table.numel() * 4,
+                        n_hit * OPS["shade"]
+                        + (n_live - n_hit) * OPS["shade_miss"])
+        out[b] = (i_res, dict(i_bound, device_ms_cold_l2=cold[0]), s_res,
+                  dict(s_bound, device_ms_cold_l2=cold[1]))
+    return out
+
+
+def two_kernel_render(torch, np, make_render_fn, scene, cam, bg, dev,
+                      fused_img, fused_segments, fused_render, smi):
+    """Phase 4b: the canonical render with fuse_bounce=False. Its warm
+    walls are taken alternately with the fused render's (fused_render) in
+    this phase, so both see the same host. Returns the two kernels' launch
+    counts."""
+    from pathtracer_tpu_torch.ops.cuda import fused_bounce_kernel as fbk
+    from pathtracer_tpu_torch.ops.cuda import shade_kernel as shk
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+
+    render = make_render_fn(cam, bg, WIDTH, HEIGHT, SPP, BOUNCES, dev,
+                            fuse_bounce=False)
+    render(scene)  # warm-up
+    counters = {"intersect_state": sk.intersect_state,
+                "shade_state": shk.shade_state,
+                "fused_bounce": fbk.fused_bounce, **no_path_kernels()}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    img, segments = render(scene)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    read_no_path("shirley_two_kernel", launches)
+    walls = {"fused": [], "two_kernel": []}
+    for order in (("fused", "two_kernel"), ("two_kernel", "fused")) * 3:
+        for name in order:
+            fn = fused_render if name == "fused" else render
+            t0 = time.perf_counter()
+            fn(scene)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    equal = torch.equal(img, fused_img)
+    oracle = np.load(ORACLE)["img"]
+    rmse = float(np.sqrt(np.mean((img.cpu().numpy().astype(np.float64)
+                                  - oracle) ** 2)))
+    busy_ms, per, n_ops, prof_wall_ms = device_times(
+        torch, lambda: render(scene), reps=1)
+    phase("two_kernel_render", config=f"{WIDTH}x{HEIGHT},spp={SPP},"
+          f"b={BOUNCES},fuse_bounce=False", segments=segments,
+          fused_segments=fused_segments, image_equal_to_fused=equal,
+          rmse=f"{rmse:.6e}",
+          wall_s=f"{statistics.median(walls['two_kernel']):.4f}",
+          fused_wall_s=f"{statistics.median(walls['fused']):.4f}",
+          walls_s=json.dumps([round(w, 4) for w in walls["two_kernel"]]),
+          fused_walls_s=json.dumps([round(w, 4) for w in walls["fused"]]),
+          launches=json.dumps(launches),
+          profiled_wall_ms=f"{prof_wall_ms:.3f}",
+          device_busy_ms=f"{busy_ms:.3f}",
+          device_idle_share=f"{1 - busy_ms / prof_wall_ms:.3f}",
+          intersect_state_ms=f"{kernel_ms(per, 'intersect_state_kernel'):.3f}",
+          shade_ms=f"{kernel_ms(per, 'shade_kernel'):.3f}",
+          device_ops=f"{n_ops:.0f}", gpu=json.dumps(smi))
+    require(launches["intersect_state"] > 0 and launches["shade_state"] > 0
+            and launches["fused_bounce"] == 0,
+            f"the two-kernel render's launches: {launches}")
+    require(segments == fused_segments,
+            f"two-kernel segments {segments} vs fused {fused_segments}")
+    require(equal, "the two-kernel image differs from the fused image")
+    require(rmse < RMSE_BUDGET, f"two-kernel RMSE {rmse} >= {RMSE_BUDGET}")
+    return launches
+
+
+def clustered_work(torch, tables, org, d, alive, n_valid):
+    """The operations intersect_clustered's function needs on these rays.
+    The cull of each live lane against every cluster (the kernel's float
+    tests, any-reduced over each 1024-ray block as its plain version does),
+    then each live lane of a block against the real (unpadded) spheres of
+    the clusters that survived; beside it the brute force, each live lane
+    against every valid sphere."""
+    from pathtracer_tpu_torch.ops import vec
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+
+    sph, clus, _ = tables
+    k = clus.shape[1]
+    e0, e1, e2 = (d[:, c, None] for c in range(3))
+    a = e0 * e0 + e1 * e1 + e2 * e2
+    fx, fy, fz = (clus[c][None, :] - org[:, c, None] for c in range(3))
+    fb = fx * e0 + fy * e1 + fz * e2  # (n, K)
+    fq = fx * fx + fy * fy + fz * fz
+    cr2 = clus[3][None, :]
+    may_hit = ((((fq - fb * fb * (1.0 / a)) <= cr2) | (fq <= cr2))
+               & (fb >= -vec.sqrt(cr2 * a)) & alive[:, None])
+    run = may_hit.reshape(-1, 1024, k).any(dim=1)  # (blocks, K)
+    live = alive.reshape(-1, 1024).sum(dim=1)
+    real = (sph[3].reshape(k, sk.CLUSTER) != -sk.BIG).sum(dim=1)
+    sphere_tests = int((live[:, None] * run * real[None, :]).sum())
+    n_live = int(alive.sum())
+    return {"tested_block_clusters": int(run.sum()),
+            "live_blocks": int((live > 0).sum()),
+            "real_spheres": int(real.sum()),
+            "live_sphere_tests": sphere_tests,
+            "clustered_ops": n_live * k * OPS["cull"]
+            + sphere_tests * OPS["sphere"],
+            "brute_force_ops": n_live * n_valid * OPS["sphere"]}
+
+
+def clustered_phase(torch, scene, sph_table, state):
+    """Phase 4c: intersect_clustered on the rays of the bounce-1 `state`
+    against its plain version, then against intersect_spheres. Returns
+    (err, ms, plain_ms, bound dict, intersect_spheres ms)."""
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+
+    t0 = time.perf_counter()
+    tables = sk.pack_spheres_clustered(scene.center, scene.radius,
+                                       scene.valid)
+    pack_s = time.perf_counter() - t0
+    org = state[0:3].reshape(3, -1).T.contiguous()
+    d = state[3:6].reshape(3, -1).T.contiguous()
+    alive = state[9].reshape(-1) > 0
+    n, k = org.shape[0], tables[1].shape[1]
+    work = clustered_work(torch, tables, org, d, alive,
+                          int(scene.valid.sum()))
+    # bytes: the rays, alive and the outputs, the tables; operations: the
+    # least the function needs, the clustered or the brute-force count
+    c_bound = bound(n * (24 + 1 + 12) + sum(t.numel() * 4 for t in tables),
+                    min(work["clustered_ops"], work["brute_force_ops"]))
+    err, kms, pms, _ = compare(
+        torch, "intersect_clustered",
+        lambda: sk.intersect_clustered(tables, org, d, alive),
+        lambda: sk.intersect_clustered_plain(tables, org, d, alive),
+        f"bounce1:{n}_rays", kernel="intersect_clustered_kernel",
+        plain_reps=1, plain_batch=1, plain_prof=1, clusters=k,
+        pack_s=f"{pack_s:.3f}", of_block_clusters=n // 1024 * k, **work)
+    ones = torch.ones_like(alive)
+    mism = {}
+    for label, mask in (("live", alive), ("all_alive", ones)):
+        got = sk.intersect_clustered(tables, org, d, mask)
+        want = sk.intersect_spheres(sph_table, org, d, mask)
+        lanes = mask if label == "live" else ones
+        hit_eq = torch.equal(got[2][lanes], want[2][lanes])
+        at_eq = torch.equal(got[0][lanes], want[0][lanes])
+        idx_ne = lanes & got[2] & (got[1] != want[1])
+        mism[label] = (hit_eq, at_eq, int(idx_ne.sum()))
+    s_ms = time_ms(torch, lambda: sk.intersect_spheres(sph_table, org, d,
+                                                       alive))
+    _, per, _, _ = device_times(torch, lambda: sk.intersect_spheres(
+        sph_table, org, d, alive), reps=5)
+    phase("clustered_vs_spheres", rays=n, live=int(alive.sum()),
+          hit_equal_live=mism["live"][0], at_equal_live=mism["live"][1],
+          idx_mismatches_live=mism["live"][2],
+          hit_equal_all_alive=mism["all_alive"][0],
+          at_equal_all_alive=mism["all_alive"][1],
+          idx_mismatches_all_alive=mism["all_alive"][2],
+          clustered_ms=f"{kms:.4f}", intersect_spheres_ms=f"{s_ms:.4f}",
+          intersect_spheres_device_ms=device_ms_field(
+              per, "intersect_spheres_kernel"),
+          bound_ms=f"{c_bound['bound_ms']:.4f}")
+    require(all(h and a for h, a, _ in mism.values()),
+            f"intersect_clustered's hits differ from intersect_spheres': "
+            f"{mism}")
+    return err, kms, pms, c_bound, s_ms
+
+
+def raster_gather_phase(torch, np, deposits, hits, r1, chunks):
+    """Phase 6, the raster-grid gather on cornell iteration 1's deposits
+    and eye hits at r(1). Returns its JSON entry (without launches)."""
+    from pathtracer_tpu_torch import ppm
+    from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
+
+    t0 = time.perf_counter()
+    photons_t, start, count, glo, cell = ppm._build_grid_morton_device(
+        *deposits, r1)
+    pt, nm, act = hits
+    s, e, own = gk.query_tables(pt, act, glo, cell, start, count)
+    perm = torch.argsort(own, stable=True)
+    pt, nm, act = pt[perm].contiguous(), nm[perm].contiguous(), act[perm]
+    s, e = s[:, perm].contiguous(), e[:, perm].contiguous()
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    n = pt.shape[0]
+    nblk = n // 1024
+    lane_len = (e - s).sum(dim=0)
+    blk_len = lane_len.reshape(nblk, 1024).amax(dim=1)
+    longest = torch.argsort(blk_len, descending=True, stable=True)[
+        :RASTER_LONGEST].tolist()
+    spaced = [b for b in np.linspace(0, nblk - 1, RASTER_SPACED + 8)
+              .round().astype(int).tolist() if b not in longest]
+    blocks = sorted(longest + spaced[:RASTER_SPACED])
+    rows = torch.cat([torch.arange(b * 1024, (b + 1) * 1024,
+                                   device=pt.device) for b in blocks])
+    sub = (pt[rows].contiguous(), nm[rows].contiguous(),
+           s[:, rows].contiguous(), e[:, rows].contiguous(), photons_t, r1)
+    err, ms_sub, plain_ms, (want_rows,) = compare(
+        torch, "gather_flux", lambda: gk.gather_flux(*sub),
+        lambda: gk.gather_flux_plain(*sub),
+        f"{len(blocks)}_of_{nblk}_blocks", kernel="gather_flux_kernel",
+        plain_reps=1, plain_batch=1, plain_prof=1,
+        lane_range_max=int(lane_len[rows].max()),
+        block_range_max=json.dumps(blk_len[blocks].tolist()))
+    args = (pt, nm, s, e, photons_t, r1)
+    full = gk.gather_flux(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(full[rows], want_rows),
+            "the full-size raster gather differs from the plain version on "
+            "the checked blocks")
+    photons_c, sbox = chunks
+    chunk = gk.gather_flux_chunks(pt, nm, act, sbox, photons_c, r1)
+    diff = (full - chunk).abs()
+    rel = float((diff / chunk.abs().clamp(min=1e-30)).max())
+    close = bool((diff <= 1e-6 + 1e-4 * chunk.abs()).all())
+    ms = time_ms(torch, lambda: gk.gather_flux(*args))
+    chunk_ms = time_ms(torch, lambda: gk.gather_flux_chunks(
+        pt, nm, act, sbox, photons_c, r1))
+    _, per, _, _ = device_times(torch, lambda: gk.gather_flux(*args), reps=5)
+    cold_ms = time_cold_ms(torch, lambda: gk.gather_flux(*args))
+    # work: every hit-photon pair of the lanes' ranges; bytes: the hits,
+    # the ranges, the output and each photon that some range holds, once
+    np_pad = photons_t.shape[1]
+    cover = torch.zeros(np_pad + 1, dtype=torch.int64, device=pt.device)
+    cover.index_add_(0, s.reshape(-1).long(), torch.ones_like(
+        s.reshape(-1), dtype=torch.int64))
+    cover.index_add_(0, e.reshape(-1).long(), -torch.ones_like(
+        e.reshape(-1), dtype=torch.int64))
+    covered = int((torch.cumsum(cover, 0)[:np_pad] > 0).sum())
+    pairs = int(lane_len.sum())
+    g_bound = bound(n * (24 + 72 + 12) + covered * 36,
+                    pairs * OPS["gather"])
+    phase("gather_flux_full", hits=n, blocks=nblk,
+          photon_columns=np_pad, radius=f"{r1:.6f}",
+          cell=f"{float(cell):.6f}", cell_over_r=f"{float(cell) / r1:.3f}",
+          grid_s=f"{grid_s:.3f}", pairs=pairs, photons_in_ranges=covered,
+          lane_range_mean=f"{float(lane_len[act].float().mean()):.1f}",
+          lane_range_max=int(lane_len.max()), ms=f"{ms:.4f}",
+          device_ms=device_ms_field(per, "gather_flux_kernel"),
+          cold_l2_ms=f"{cold_ms:.4f}", chunk_gather_ms=f"{chunk_ms:.4f}",
+          max_abs_diff_vs_chunk_gather=f"{float(diff.max()):.6e}",
+          max_rel_diff_vs_chunk_gather=f"{rel:.6e}",
+          within_rtol_1e_4_atol_1e_6=close,
+          bound_ms=f"{g_bound['bound_ms']:.4f}")
+    require(close, "the raster gather differs from the chunk gather beyond "
+            "rtol 1e-4, atol 1e-6")
+    return entry("gather_flux", "gather_flux.cu",
+                 "pallas/gather_kernel.py:510", err, ms, plain_ms, **g_bound,
+                 shape=f"cornell iteration 1, all {nblk} blocks (ms, "
+                 f"bound_ms); {len(blocks)} blocks (plain_ms, "
+                 "ms_checked_blocks)", ms_checked_blocks=ms_sub,
+                 device_ms_cold_l2=cold_ms, path=None)
+
+
 def ppm_phases(torch, np, dev, smi):
-    """Phases 6-8: the photon mapper's kernels, the cornell render and its
-    CLI. Returns (kernel JSON entries without launches, launch counts of
-    the render)."""
+    """Phases 6-8: the photon mapper's kernels, the raster-grid gather, the
+    cornell render and its CLI. Returns (kernel JSON entries without
+    launches, launch counts of the render, the raster gather's entry)."""
     from pathtracer_tpu_torch import ppm
     from pathtracer_tpu_torch.models import cornell
     from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
@@ -356,6 +773,7 @@ def ppm_phases(torch, np, dev, smi):
     pos, nrm, flux, ok, _ = trace(0)
     photons_t, sbox = gk.build_photon_chunks(pos, nrm, flux, ok)
     pt, nm, _, act = eye.walk(0)
+    eye_hits = (pt, nm, act)
     perm = torch.argsort(gk.hit_morton_keys(pt, act), stable=True)
     pt, nm, act = pt[perm].contiguous(), nm[perm].contiguous(), act[perm]
     lists, counts = gk.block_chunk_lists(pt, act, sbox, r1)
@@ -403,11 +821,14 @@ def ppm_phases(torch, np, dev, smi):
           ms=f"{g_ms:.4f}",
           device_ms=f"{kernel_ms(per, 'gather_chunks_kernel'):.4f}",
           wrapper_device_ms=f"{sum(per.values()):.4f}")
+    raster = raster_gather_phase(torch, np, (pos, nrm, flux, ok), eye_hits,
+                                 r1, (photons_t, sbox))
 
     # --- 7. the cornell render -------------------------------------------
     counters = {"intersect_spheres": sk.intersect_spheres,
                 "intersect_tris": tk.intersect_tris,
-                "gather_flux_chunks": gk.gather_flux_chunks}
+                "gather_flux_chunks": gk.gather_flux_chunks,
+                **no_path_kernels()}
     for fn in counters.values():
         fn.launches = 0
     marks = []
@@ -420,6 +841,7 @@ def ppm_phases(torch, np, dev, smi):
     t0 = time.perf_counter()
     img_sum = rend.render(checkpoint_cb=tick)
     launches = {k: fn.launches for k, fn in counters.items()}
+    read_no_path("cornell", launches)
     iter_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
     lengths = [int(n) for n in rend.photon_map_lengths]
     segments = [int(s) for s, _ in rend.iter_segments]
@@ -507,7 +929,7 @@ def ppm_phases(torch, np, dev, smi):
               shape=f"{len(blocks)} of {nblk} blocks at iteration 1",
               ms_all_blocks=g_ms),
     ]
-    return kernels, launches
+    return kernels, launches, raster
 
 
 def mesh_phases(torch, np, dev, smi):
@@ -688,7 +1110,8 @@ def ganesha_phases(torch, np, smi, rend):
                 "intersect_tris": tk.intersect_tris,
                 "gather_flux_chunks": gk.gather_flux_chunks,
                 "bvh8_walk": bw.bvh8_walk,
-                "intersect_tile_tris": ttk.intersect_tile_tris}
+                "intersect_tile_tris": ttk.intersect_tile_tris,
+                **no_path_kernels()}
     for fn in counters.values():
         fn.launches = 0
     marks = []
@@ -701,6 +1124,7 @@ def ganesha_phases(torch, np, smi, rend):
     t0 = time.perf_counter()
     img_sum = rend.render(checkpoint_cb=tick)
     launches = {k: fn.launches for k, fn in counters.items()}
+    read_no_path("ganesha", launches)
     iter_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
     lengths = [int(n) for n in rend.photon_map_lengths]
     ref = np.load(GANESHA_REF)
@@ -983,6 +1407,8 @@ def main() -> None:
           device_ms=f"{kernel_ms(per, 'compact_kernel'):.4f}",
           plain_device_ms=f"{pdev:.4f}")
     require(exact, "compact_blocks differs from its plain version")
+    n_sph = int(scene.valid.sum())
+    two_k = two_kernel_kernels(torch, r, fb_in, off, bg, n_sph)
 
     # --- 4. main path ----------------------------------------------------
     render = make_render_fn(cam, bg, WIDTH, HEIGHT, SPP, BOUNCES, dev)
@@ -991,15 +1417,17 @@ def main() -> None:
     render(scene)  # first render: allocator and cuDNN warm-up
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    fbk.fused_bounce.launches = 0
-    ck.compact_blocks.launches = 0
+    counters = {"fused_bounce": fbk.fused_bounce,
+                "compact_blocks": ck.compact_blocks, **no_path_kernels()}
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    img, segments = render(scene)
+    img_t, segments = render(scene)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"fused_bounce": fbk.fused_bounce.launches,
-                "compact_blocks": ck.compact_blocks.launches}
-    img = img.cpu().numpy().astype(np.float64)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    read_no_path("shirley", launches)
+    img = img_t.cpu().numpy().astype(np.float64)
     oracle = np.load(ORACLE)["img"]
     require(img.shape == oracle.shape == (HEIGHT, WIDTH, 3),
             f"image shape {img.shape}")
@@ -1044,6 +1472,12 @@ def main() -> None:
           compact_ms=f"{kernel_ms(per, 'compact_kernel'):.3f}",
           device_ops=f"{n_ops:.0f}", kernels_seen=len(per))
 
+    # --- 4b. the two-kernel render; 4c. the clustered kernel --------------
+    two_k_launches = two_kernel_render(torch, np, make_render_fn, scene, cam,
+                                       bg, dev, img_t, segments, render, smi)
+    cl_err, cl_ms, cl_plain_ms, cl_bound, cl_spheres_ms = clustered_phase(
+        torch, scene, r.sph_table, fb_in[1])
+
     # --- 5. CLI ----------------------------------------------------------
     os.makedirs(OUT, exist_ok=True)
     png = os.path.join(OUT, f"shirley_{WIDTH}x{HEIGHT}_spp{SPP}.png")
@@ -1062,7 +1496,7 @@ def main() -> None:
           said=json.dumps(cli.stdout.strip().splitlines()[-1]))
     require(size == (WIDTH, HEIGHT), f"PNG is {size}")
 
-    ppm_kernels, ppm_launches = ppm_phases(torch, np, dev, smi)
+    ppm_kernels, ppm_launches, raster = ppm_phases(torch, np, dev, smi)
 
     mesh_kernels, mesh_launches = mesh_phases(torch, np, dev, smi)
 
@@ -1079,14 +1513,10 @@ def main() -> None:
                      * OPS["fused_sphere"])
     n3, live3 = off.numel(), int((state_in[9] > 0).sum())
     ck_bound = bound(n3 * 4 + live3 * 40 + n3 * 44 + n3 // 1024 * 4, 0)
-    # bounce 0 (listed): each live ray against its block's list (the
-    # distinct spheres; a list is padded with repeats of its first)
-    live_blk = (fb_in[0][9] > 0).reshape(-1, 1024).sum(dim=1)
-    n_list = torch.tensor([len(set(row[:c].tolist())) for row, c in zip(
-        r.lists.cpu(), r.counts[:, 0].tolist())], device=dev)
+    # bounce 0 (listed): each live ray against its block's list
     fb0_bound = bound(n1 * 4 * (10 + 3 + 1 + 10 + 3) + r.lists.numel() * 4
                       + (r.sph_table.numel() + r.pack_table.numel()) * 4,
-                      int((live_blk * n_list).sum()) * OPS["listed_sphere"])
+                      listed_pairs(torch, r, fb_in[0]) * OPS["listed_sphere"])
     kernels = [
         entry("fused_bounce", "fused_bounce.cu",
               "pallas/fused_bounce_kernel.py:123", fb_err, *fb_times[1],
@@ -1110,7 +1540,47 @@ def main() -> None:
     for k in mesh_kernels:
         k["launches"] = mesh_launches[k["name"]]
     kernels += mesh_kernels
-    require(len(kernels) == 7, f"{len(kernels)} kernels in the JSON line")
+    # the two-kernel bounce: bounce 1 (full) as ms, bounce 0 (listed)
+    # beside it; launches from the fuse_bounce=False render
+    (i1, ib1, s1, sb1), (i0, ib0, s0, sb0) = two_k[1], two_k[0]
+    kernels += [
+        entry("intersect_state", "intersect_state.cu",
+              "pallas/sphere_kernel.py:499", *i1, **ib1,
+              shape="shirley bounce 1 (full), 194560 lanes",
+              launches=two_k_launches["intersect_state"],
+              path="make_render_fn(fuse_bounce=False)",
+              ms_listed_bounce0=i0[1], plain_ms_listed_bounce0=i0[2],
+              bound_ms_listed_bounce0=ib0["bound_ms"],
+              bound_by_listed_bounce0=ib0["bound_by"],
+              device_ms_cold_l2_listed_bounce0=ib0["device_ms_cold_l2"],
+              replaces_listed="pathtracer_tpu/ops/pallas/sphere_kernel.py"
+              ":487"),
+        entry("shade_state", "shade.cu", "pallas/shade_kernel.py:407", *s1,
+              **sb1, shape="shirley bounce 1, 194560 lanes",
+              launches=two_k_launches["shade_state"],
+              path="make_render_fn(fuse_bounce=False)",
+              ms_bounce0=s0[1], plain_ms_bounce0=s0[2],
+              bound_ms_bounce0=sb0["bound_ms"],
+              device_ms_cold_l2_bounce0=sb0["device_ms_cold_l2"]),
+        entry("intersect_clustered", "intersect_clustered.cu",
+              "pallas/sphere_kernel.py:247", cl_err, cl_ms, cl_plain_ms,
+              **cl_bound, shape="shirley bounce-1 rays, 194560 x 178 "
+              "clusters", path=None, intersect_spheres_ms=cl_spheres_ms),
+        raster,
+    ]
+    # the kernels on no path: their counts as read around each of the four
+    # main-path renders
+    require(len(NO_PATH_LAUNCHES) == 4,
+            f"no-path counts read around {sorted(NO_PATH_LAUNCHES)}")
+    for k in kernels[-2:]:
+        by_path = {p: counts[k["name"]]
+                   for p, counts in NO_PATH_LAUNCHES.items()}
+        k.update(launches=sum(by_path.values()), launches_by_path=by_path)
+    phase("no_path_launches", counts=json.dumps(NO_PATH_LAUNCHES))
+    require(all(n == 0 for counts in NO_PATH_LAUNCHES.values()
+                for n in counts.values()),
+            f"a render launched a kernel of no path: {NO_PATH_LAUNCHES}")
+    require(len(kernels) == 11, f"{len(kernels)} kernels in the JSON line")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,10 @@
 nvcc compiles every source to an object, one process per source, all
 started together, and links the objects into one shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build takes
-seconds).
+seconds). The sources share csrc/*.cuh headers.
 The library lands in `_build/` beside this file, under a name that carries a
-hash of the sources and flags: a changed source builds anew, an unchanged one
-is loaded as it is. Nothing is built when the package is imported, only at
+hash of the sources, the headers and the flags: a changed file builds anew,
+an unchanged set is loaded as it is. Nothing is built when the package is imported, only at
 the first kernel launch (or an explicit `load()`). A missing nvcc or a failed
 compile raises.
 
@@ -48,6 +48,12 @@ _SIGNATURES = {
                                _P, _P],
     "pt_bvh8_walk": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                      _P],
+    "pt_intersect_state": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P],
+    "pt_shade_state": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _U, _U, _U, _U,
+                       _F, _F, _F, _F, _F, _F, _I, _I, _P],
+    "pt_intersect_clustered": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _P],
+    "pt_gather_flux": [_P, _P, _P, _P, _I, _F, _P, _I, _P],
 }
 
 _lib = None
@@ -72,7 +78,7 @@ def _sources() -> list[str]:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_sources() + glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(_OUT, f"libpt_kernels_{h.hexdigest()[:16]}.so")

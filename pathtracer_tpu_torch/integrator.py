@@ -14,8 +14,13 @@ render driver (make_render_fn). Sampling follows the JAX package:
 
 The wavefront is the JAX kernel layout: state (10, rows, 128) f32 planes
 [org3, dir3, attn3, alive], offsets (rows, 128) int32 (uint32 bit patterns)
-and radiance (3, rows, 128). Every bounce is one fused_bounce kernel; lane
-compaction runs at the _default_compact_at bounces.
+and radiance (3, rows, 128). Every bounce is one fused_bounce kernel, or
+with fuse_bounce=False the two-kernel bounce (intersect_state, then
+shade_state: the JAX path under PATHTRACER_FUSE_BOUNCE=0, which gives the
+same image bit for bit). The two-kernel bounce is a parity path, which runs
+the ports of the JAX package's two-kernel Pallas kernels, not a tuning
+option: it is slower on the card. Lane compaction runs at the
+_default_compact_at bounces.
 
 Design choice, not a port of the JAX code: the JAX package pre-sizes
 lax.switch buckets for the post-compaction wavefront because TPU shapes are
@@ -35,9 +40,10 @@ from .camera import Camera
 from .ops import vec
 from .ops.cuda import compact_kernel as ck
 from .ops.cuda import fused_bounce_kernel as fbk
-from .ops.cuda.shade_kernel import pack_material_tables
+from .ops.cuda.shade_kernel import pack_material_tables, shade_state
 from .ops.cuda.sphere_kernel import (BIG, LANES, LIST_UNROLL,
-                                     intersect_spheres, pack_spheres)
+                                     intersect_spheres, intersect_state,
+                                     pack_spheres)
 from .ops.cuda.tri_kernel import intersect_tris, pack_tris
 from .ops.frustum import tile_frustum_planes
 from .ops.lds import M32, Sampler
@@ -240,17 +246,30 @@ def _to_orig(rad: torch.Tensor, chain) -> torch.Tensor:
     return x
 
 
+def _two_kernel_bounce(sph_table, state, pack_table, off, limbs, bg, rad, *,
+                       bg_mode: int, origin_zero: bool, block_lists=None):
+    """One bounce as intersect_state, then shade_state: fused_bounce's
+    contract in two kernels."""
+    at, idx = intersect_state(sph_table, state, origin_zero=origin_zero,
+                              block_lists=block_lists)
+    return shade_state(state, pack_table, idx, off, at, limbs, bg, rad,
+                       bg_mode=bg_mode)
+
+
 def trace_wavefront(sph_table, pack_table, state, off, sampler: Sampler,
                     max_bounces: int, background, *, origin_zero: bool,
-                    block_lists0=None):
+                    block_lists0=None, fuse_bounce: bool = True):
     """Trace the wavefront to completion (the JAX _trace_pallas2).
 
     sph_table (4, S); pack_table (10, Sq, 128); state (10, rows, 128);
     off (rows, 128) int32; background (bg_mode, colors); block_lists0:
-    bounce-0 per-block sphere lists (tile-major rays only).
+    bounce-0 per-block sphere lists (tile-major rays only); fuse_bounce:
+    each bounce is one fused_bounce (True) or intersect_state then
+    shade_state (False, the parity path of the module docstring).
     Returns (radiance (3, rows, 128) in the input lane order, segments
     0-dim int64 tensor on the device)."""
     bg_mode, bg = background
+    bounce_fn = fbk.fused_bounce if fuse_bounce else _two_kernel_bounce
     compact_at = {b for b in _default_compact_at(max_bounces)
                   if 0 < b < max_bounces}
     rows = state.shape[1]
@@ -274,7 +293,7 @@ def trace_wavefront(sph_table, pack_table, state, off, sampler: Sampler,
             rad = torch.zeros(3, keep, LANES, dtype=torch.float32,
                               device=dev)
         segments += (state[9] > 0.0).sum()
-        state, rad = fbk.fused_bounce(
+        state, rad = bounce_fn(
             sph_table, state, pack_table, off,
             sampler.limbs(2 + 2 * bounce, 3 + 2 * bounce), bg, rad,
             bg_mode=bg_mode, origin_zero=origin_zero and bounce == 0,
@@ -287,12 +306,15 @@ class Renderer(torch.nn.Module):
     """The shirley-style path tracer over one sphere scene: the tiled pass
     loop, the kernel wavefront, film reconstruction. The scene tables, the
     tile-major ray order and the filter are buffers, so `.to(device)` moves
-    them. forward(progress=None) -> (image (H, W, 3) f32 on the device,
-    segments traced, int)."""
+    them. fuse_bounce: one fused kernel per bounce (True) or the two-kernel
+    parity path (False). forward(progress=None) -> (image (H, W, 3) f32 on the
+    device, segments traced, int)."""
 
     def __init__(self, scene: Scene, camera: Camera, background, width: int,
-                 height: int, spp: int, max_bounces: int, device):
+                 height: int, spp: int, max_bounces: int, device,
+                 fuse_bounce: bool = True):
         super().__init__()
+        self.fuse_bounce = fuse_bounce
         self.camera = camera
         self.background = background
         self.width, self.height = width, height
@@ -346,7 +368,8 @@ class Renderer(torch.nn.Module):
         return trace_wavefront(self.sph_table, self.pack_table, state, off,
                                self.sampler, self.max_bounces,
                                self.background, origin_zero=True,
-                               block_lists0=(self.lists, self.counts))
+                               block_lists0=(self.lists, self.counts),
+                               fuse_bounce=self.fuse_bounce)
 
     def untile(self, planes: torch.Tensor) -> torch.Tensor:
         """(3, rows, 128) tile-major radiance planes -> (H, W, 3)."""
@@ -373,14 +396,17 @@ class Renderer(torch.nn.Module):
 
 
 def make_render_fn(camera: Camera, background, width: int, height: int,
-                   spp: int, max_bounces: int, device):
+                   spp: int, max_bounces: int, device,
+                   fuse_bounce: bool = True):
     """render(scene, progress=None) -> (image (H, W, 3) f32 tensor on
     `device`, segments int). progress, if given, is called with the pixel
-    count after each pass (the CLI's progress bar). The kernels' wrappers
-    run their plain PyTorch versions when `device` is the CPU."""
+    count after each pass (the CLI's progress bar). fuse_bounce=False
+    renders with the two-kernel bounce, to the same image: a parity path,
+    not a tuning option. The kernels'
+    wrappers run their plain PyTorch versions when `device` is the CPU."""
 
     def render(scene: Scene, progress=None):
         return Renderer(scene, camera, background, width, height, spp,
-                        max_bounces, device)(progress)
+                        max_bounces, device, fuse_bounce)(progress)
 
     return render

@@ -82,8 +82,11 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def bvh_build(prim_lo, prim_hi):
-    """Binned-SAH build from per-primitive boxes. Returns (nodes_lo (M, 3),
+def bvh_build(prim_lo, prim_hi, length_cutoff=LENGTH_CUTOFF,
+              num_bins=NUM_BINS):
+    """Binned-SAH build from per-primitive boxes, with leaves of at most
+    length_cutoff primitives and num_bins bins per axis (the defaults are
+    the mesh's). Returns (nodes_lo (M, 3),
     nodes_hi (M, 3), meta (M, 3) int32 [first, count, skip], order (T,)
     int64 primitive permutation, depth, axes (M,) int32, -1 for leaves)."""
     lib = load()
@@ -97,8 +100,8 @@ def bvh_build(prim_lo, prim_hi):
     order = np.empty(n, np.int32)
     depth = np.zeros(1, np.int32)
     axes = np.empty(cap, np.int32)
-    m = lib.bvh_build2(lo, hi, n, LENGTH_CUTOFF, NUM_BINS, COST_I, COST_T,
-                       nodes_lo, nodes_hi, meta, order, depth, axes)
+    m = lib.bvh_build2(lo, hi, n, int(length_cutoff), int(num_bins), COST_I,
+                       COST_T, nodes_lo, nodes_hi, meta, order, depth, axes)
     return (nodes_lo[:m].copy(), nodes_hi[:m].copy(), meta[:m].copy(),
             order.astype(np.int64), int(depth[0]), axes[:m].copy())
 

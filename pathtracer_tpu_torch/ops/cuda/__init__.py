@@ -1,0 +1,22 @@
+"""The port's CUDA kernels: one module per kernel family, each with the
+wrapper that launches the kernel for CUDA tensors, the plain PyTorch version
+that it runs for CPU tensors, and a `launches` count on the wrapper."""
+
+from __future__ import annotations
+
+
+def check_tensors(what: str, device, checks) -> None:
+    """Raise ValueError unless every (name, tensor, dtype, shape) of
+    `checks` lies on `device`, has that dtype and shape, and is contiguous:
+    the argument contract of a kernel launch."""
+    for name, t, dtype, shape in checks:
+        problem = (f"{name} on {t.device}, want {device}"
+                   if t.device != device else
+                   f"{name} dtype {t.dtype}, want {dtype}"
+                   if t.dtype != dtype else
+                   f"{name} shape {tuple(t.shape)}, want {tuple(shape)}"
+                   if tuple(t.shape) != tuple(shape) else
+                   f"{name} is not contiguous"
+                   if not t.is_contiguous() else None)
+        if problem:
+            raise ValueError(f"{what}: {problem}")

@@ -2,9 +2,10 @@
 
 Port of pathtracer_tpu/ops/pallas/fused_bounce_kernel.py:fused_bounce_pallas.
 `fused_bounce` launches the CUDA kernel csrc/fused_bounce.cu for CUDA tensors;
-`fused_bounce_plain` is the same function in plain PyTorch (sphere_kernel's
-intersection, then shade_kernel.shade), which `fused_bounce` runs for CPU
-tensors and which the tests and chip_smoke.py hold the kernel against.
+`fused_bounce_plain` is the same function in plain PyTorch: the plain
+versions of the two-kernel bounce, sphere_kernel.intersect_state_plain and
+then shade_kernel.shade_state_plain. `fused_bounce` runs it for CPU tensors,
+and the tests and chip_smoke.py hold the kernel against it.
 
 Layout (the JAX kernel's): state (10, rows, 128) f32 planes [org3, dir3,
 attn3, alive]; off (rows, 128) int32 LDS offsets (uint32 bit patterns); rad
@@ -20,9 +21,10 @@ import numpy as np
 import torch
 
 from ... import _build
-from .shade_kernel import PK_PLANES, shade
-from .sphere_kernel import (BIG, LANES, RAY_BLOCK, intersect_regs,
-                            intersect_regs_listed)
+from . import check_tensors
+from .shade_kernel import PK_PLANES, shade_state_plain
+from .sphere_kernel import (LANES, RAY_BLOCK, check_state,
+                            intersect_state_plain)
 
 __all__ = ["fused_bounce", "fused_bounce_plain"]
 
@@ -30,23 +32,10 @@ __all__ = ["fused_bounce", "fused_bounce_plain"]
 def fused_bounce_plain(sph_table, state, pack_table, off, limbs, bg, rad, *,
                        bg_mode: int, origin_zero: bool, block_lists=None):
     """Plain PyTorch version of the fused bounce. Returns (state, rad)."""
-    comps = [state[c].reshape(-1) for c in range(6)]
-    if block_lists is None:
-        best_at, best_idx = intersect_regs(sph_table, *comps,
-                                           origin_zero=origin_zero)
-    else:
-        lists, counts = block_lists
-        best_at, best_idx = intersect_regs_listed(
-            sph_table, lists, counts, *comps, origin_zero=origin_zero)
-    shape = state.shape[1:]
-    hit = (best_at.reshape(shape) < BIG) & (state[9] > 0.0)
-    return shade(pack_table, state, off, best_idx.reshape(shape), hit, limbs,
-                 bg, rad, bg_mode)
-
-
-def _require(cond: bool, what: str) -> None:
-    if not cond:
-        raise ValueError(f"fused_bounce: {what}")
+    at, idx = intersect_state_plain(sph_table, state, origin_zero=origin_zero,
+                                    block_lists=block_lists)
+    return shade_state_plain(state, pack_table, idx, off, at, limbs, bg, rad,
+                             bg_mode=bg_mode)
 
 
 def fused_bounce(sph_table, state, pack_table, off, limbs, bg, rad, *,
@@ -60,12 +49,7 @@ def fused_bounce(sph_table, state, pack_table, off, limbs, bg, rad, *,
                                   bg, rad, bg_mode=bg_mode,
                                   origin_zero=origin_zero,
                                   block_lists=block_lists)
-    _require(state.device.type == "cuda",
-             f"no kernel for device {state.device}")
-    _require(state.dim() == 3 and state.shape[0] == 10
-             and state.shape[2] == LANES and state.shape[1] % 8 == 0,
-             f"state must be (10, 8k, {LANES}), got {tuple(state.shape)}")
-    rows = state.shape[1]
+    rows = check_state("fused_bounce", state)
     n = rows * LANES
     n_spheres = sph_table.shape[1] if sph_table.dim() == 2 else -1
     checks = [("sph_table", sph_table, torch.float32, (4, n_spheres)),
@@ -80,15 +64,10 @@ def fused_bounce(sph_table, state, pack_table, off, limbs, bg, rad, *,
         n_blk = n // RAY_BLOCK
         checks += [("lists", lists, torch.int32, (n_blk, lists.shape[1])),
                    ("counts", counts, torch.int32, (n_blk, 1))]
-    for name, t, dtype, shape in checks:
-        _require(t.device == state.device, f"{name} on {t.device}, "
-                 f"state on {state.device}")
-        _require(t.dtype == dtype, f"{name} dtype {t.dtype}, want {dtype}")
-        _require(tuple(t.shape) == tuple(shape),
-                 f"{name} shape {tuple(t.shape)}, want {tuple(shape)}")
-        _require(t.is_contiguous(), f"{name} is not contiguous")
-    _require(pack_table.shape[1] * LANES >= n_spheres,
-             "pack_table holds fewer entries than sph_table")
+    check_tensors("fused_bounce", state.device, checks)
+    if pack_table.shape[1] * LANES < n_spheres:
+        raise ValueError("fused_bounce: pack_table holds fewer entries than "
+                         "sph_table")
     limbs = np.asarray(limbs, np.uint32)
     (w0, w1, w2), (s0, s1, s2) = bg
 

@@ -1,13 +1,19 @@
-"""PPM cone-filter photon gather over per-block lists of photon chunks.
+"""PPM cone-filter photon gathers: over per-block lists of photon chunks
+(the photon mapper's), and over raster-grid ranges (the older design).
 
-Port of the adaptive chunk gather of pathtracer_tpu/ops/pallas/gather_kernel.py
-(morton3, build_photon_chunks, block_chunk_lists, hit_morton_keys,
-gather_flux_chunks_pallas). `gather_flux_chunks` launches the CUDA kernel
-csrc/gather_chunks.cu for CUDA tensors; `gather_flux_chunks_plain` is the
-same function in plain PyTorch, which `gather_flux_chunks` runs for CPU
-tensors and which the tests and chip_smoke.py hold the kernel against. The
-sorts and the candidate filter around it are torch glue, as the JAX package
-runs them in XLA.
+Port of pathtracer_tpu/ops/pallas/gather_kernel.py: the adaptive chunk
+gather (morton3, build_photon_chunks, block_chunk_lists, hit_morton_keys,
+gather_flux_chunks_pallas) and the raster-grid gather (raster3,
+build_photon_grid_morton, query_tables, gather_flux_pallas).
+`gather_flux_chunks` and `gather_flux` launch the CUDA kernels
+csrc/gather_chunks.cu and csrc/gather_flux.cu for CUDA tensors;
+`gather_flux_chunks_plain` and `gather_flux_plain` are the same functions in
+plain PyTorch, which the wrappers run for CPU tensors and which the tests
+and chip_smoke.py hold the kernels against. The sorts, the grid and the
+candidate filter around them are torch glue, as the JAX package runs them
+in XLA. No caller renders through the raster gather: its dense grid needs a
+cell of max(r, extent / 127), which a scene whose photons spread far (the
+ganesha floor) makes hundreds of radii wide.
 
 Photons are sorted by a 30-bit Morton code over their own bbox and cut into
 128-photon chunks of four 32-photon sub-chunks, each with an exact f32 bbox.
@@ -27,9 +33,12 @@ import torch
 
 from ... import _build
 from .. import vec
+from . import check_tensors
 
 __all__ = ["morton3", "build_photon_chunks", "block_chunk_lists",
-           "hit_morton_keys", "gather_flux_chunks", "gather_flux_chunks_plain"]
+           "hit_morton_keys", "gather_flux_chunks", "gather_flux_chunks_plain",
+           "raster3", "build_photon_grid_morton", "query_tables",
+           "gather_flux", "gather_flux_plain"]
 
 BIG = float(np.float32(3.0e38))
 BLOCK = 1024  # eye hits per block (one CTA of the kernel)
@@ -42,6 +51,14 @@ _M32 = 0xFFFFFFFF
 # blocks per step of the plain version: bounds its (blocks, 1024, 128)
 # temporaries to 4 MB each
 PLAIN_BLOCKS = 8
+# the raster grid: SIDE cells per axis, a dense (start, count) table of
+# SIDE^3 = 2,097,152 cells, and the 9 (dy, dz) rows of a hit's 3x3x3 cells
+BITS = 7
+SIDE = 1 << BITS
+N_OFF = 9
+_OFFSETS_YZ = [(y, z) for y in (-1, 0, 1) for z in (-1, 0, 1)]
+# range positions per step of gather_flux_plain
+RANGE_STEP = 64
 
 
 def morton3(cx, cy, cz) -> torch.Tensor:
@@ -195,11 +212,6 @@ def gather_flux_chunks_plain(point, normal, active, sbox, photons_t, radius):
     return torch.where(active[:, None], acc.reshape(n, 3), 0.0)
 
 
-def _require(cond: bool, what: str) -> None:
-    if not cond:
-        raise ValueError(f"gather_flux_chunks: {what}")
-
-
 def gather_flux_chunks(point, normal, active, sbox, photons_t, radius):
     """Cone-filter gather for n eye hits (n % 1024 == 0, sorted by
     hit_morton_keys so blocks are compact). point/normal (n, 3) f32; active
@@ -212,24 +224,19 @@ def gather_flux_chunks(point, normal, active, sbox, photons_t, radius):
     if point.device.type == "cpu":
         return gather_flux_chunks_plain(point, normal, active, sbox,
                                         photons_t, radius)
-    _require(point.device.type == "cuda", f"no kernel for {point.device}")
+    if point.device.type != "cuda":
+        raise ValueError(f"gather_flux_chunks: no kernel for {point.device}")
     n = point.shape[0]
     n_sub = sbox.shape[1] if sbox.dim() == 2 else 0
-    for name, t, dtype, shape in (
-            ("point", point, torch.float32, (n, 3)),
-            ("normal", normal, torch.float32, (n, 3)),
-            ("active", active, torch.bool, (n,)),
-            ("sbox", sbox, torch.float32, (6, n_sub)),
-            ("photons_t", photons_t, torch.float32, (N_PLANES, n_sub * SUB))):
-        _require(t.device == point.device, f"{name} on {t.device}, point on "
-                 f"{point.device}")
-        _require(t.dtype == dtype, f"{name} dtype {t.dtype}, want {dtype}")
-        _require(tuple(t.shape) == shape,
-                 f"{name} shape {tuple(t.shape)}, want {shape}")
-        _require(t.is_contiguous(), f"{name} is not contiguous")
-    _require(n % BLOCK == 0 and n > 0 and n_sub % N_SUBS == 0 and n_sub > 0,
-             f"want n % {BLOCK} == 0 and whole chunks; got n = {n}, "
-             f"{n_sub} sub-chunks")
+    check_tensors("gather_flux_chunks", point.device, [
+        ("point", point, torch.float32, (n, 3)),
+        ("normal", normal, torch.float32, (n, 3)),
+        ("active", active, torch.bool, (n,)),
+        ("sbox", sbox, torch.float32, (6, n_sub)),
+        ("photons_t", photons_t, torch.float32, (N_PLANES, n_sub * SUB))])
+    if not (n % BLOCK == 0 and n > 0 and n_sub % N_SUBS == 0 and n_sub > 0):
+        raise ValueError(f"gather_flux_chunks: want n % {BLOCK} == 0 and "
+                         f"whole chunks; got n = {n}, {n_sub} sub-chunks")
     lists, counts = block_chunk_lists(point, active, sbox, radius)
     hits = torch.cat([point.T, normal.T,
                       active.to(torch.float32)[None]]).contiguous()
@@ -246,3 +253,143 @@ def gather_flux_chunks(point, normal, active, sbox, photons_t, radius):
 
 
 gather_flux_chunks.launches = 0
+
+
+def raster3(cx, cy, cz):
+    """Dense raster cell key, x fastest: (z * SIDE + y) * SIDE + x. A run
+    [x0, x1] at fixed (y, z) is contiguous."""
+    return (cz * SIDE + cy) * SIDE + cx
+
+
+def _f32(x, dev) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def _grid_cells(p, lo, cell_size) -> torch.Tensor:
+    """floor((p - lo) / cell) per axis, int32, with the JAX code's float32
+    reciprocal of the cell."""
+    inv_c = 1.0 / _f32(cell_size, p.device)
+    lo = _f32(lo, p.device)
+    return torch.floor((p - lo[None, :]) * inv_c).to(torch.int32)
+
+
+def build_photon_grid_morton(pos, nrm, flux, valid, lo, cell_size):
+    """Sort the photons by raster cell key (stable, as lax.sort_key_val is)
+    and build the dense per-cell ranges (the JAX name is kept; hits still
+    sort by Morton key). pos/nrm/flux (Np, 3) f32; valid (Np,) bool; lo (3,)
+    the grid origin, which must cover every valid deposit; cell_size >= the
+    gather radius. Returns (photons_t (16, Np_pad) f32 [pos3, nrm3, flux3,
+    pad], Np_pad = ceil(Np / 128) * 128, pad columns 3e38; start (SIDE^3,)
+    int32; count (SIDE^3,) int32). Deposits that are not valid sort last
+    and belong to no cell."""
+    npho = pos.shape[0]
+    c = torch.clamp(_grid_cells(pos, lo, cell_size), 0, SIDE - 1)
+    m = SIDE ** 3
+    key = torch.where(valid, raster3(c[:, 0], c[:, 1], c[:, 2]), m)
+    order = torch.sort(key, stable=True).indices
+    count = torch.bincount(key, minlength=m + 1)[:m]
+    start = (torch.cumsum(count, 0) - count).to(torch.int32)
+    np_pad = -(-npho // CHB) * CHB
+    tbl = torch.full((N_PLANES, np_pad), BIG, dtype=torch.float32,
+                     device=pos.device)
+    tbl[0:9, :npho] = torch.cat([pos.T, nrm.T, flux.T])[:, order]
+    return tbl, start, count.to(torch.int32)
+
+
+def query_tables(point, active, lo, cell_size, start, count):
+    """Per hit, its 9 raster ranges: s, e (9, n) int32, one [start, end)
+    per (dy, dz) row of its 3x3x3 cells spanning x in [cx-1, cx+1] clamped
+    to the grid; rows off the grid, and inactive hits, get empty ranges.
+    Also own_key (n,) int32, the Morton key of the hit's own clamped cell,
+    the hits' coherence sort key."""
+    c = _grid_cells(point, lo, cell_size)  # (n, 3)
+    offs = torch.tensor(_OFFSETS_YZ, dtype=torch.int32, device=point.device)
+    yy = c[None, :, 1] + offs[:, 0:1]  # (9, n)
+    zz = c[None, :, 2] + offs[:, 1:2]
+    cx = c[None, :, 0]
+    in_grid = ((yy >= 0) & (yy < SIDE) & (zz >= 0) & (zz < SIDE)
+               & (cx >= -1) & (cx <= SIDE))
+    yyl = torch.clamp(yy, 0, SIDE - 1)
+    zzl = torch.clamp(zz, 0, SIDE - 1)
+    key_lo = raster3(torch.clamp(cx - 1, 0, SIDE - 1), yyl, zzl).long()
+    key_hi = raster3(torch.clamp(cx + 1, 0, SIDE - 1), yyl, zzl).long()
+    ok = in_grid & active[None, :]
+    s = torch.where(ok, start[key_lo], 0)
+    e = torch.where(ok, start[key_hi] + count[key_hi], 0)
+    cc = torch.clamp(c, 0, SIDE - 1)
+    return s, e, morton3(cc[:, 0], cc[:, 1], cc[:, 2])
+
+
+def gather_flux_plain(point, normal, s_tab, e_tab, photons_t, radius):
+    """Plain PyTorch version of gather_flux: every lane sums its ranges in
+    the kernel's order, offset 0..8 and then photon index ascending,
+    vectorised over the lanes, RANGE_STEP positions at a time; a position
+    past the lane's range, or a photon that fails the tests, adds nothing.
+    That takes (sum over offsets of the longest range) sequential adds."""
+    n = point.shape[0]
+    _, inv_r, r2, _ = _radius_f32(radius)
+    inv_r, r2 = float(inv_r), float(r2)
+    ndot_min = float(np.float32(1e-3))
+    x, y, z = (point[:, c, None] for c in range(3))
+    nx, ny, nz = (normal[:, c, None] for c in range(3))
+    acc = torch.zeros(3, n, dtype=torch.float32, device=point.device)
+    steps = torch.arange(RANGE_STEP, device=point.device)
+    for o in range(N_OFF):
+        s, e = s_tab[o].long(), e_tab[o].long()
+        longest = int((e - s).max()) if n else 0
+        for k0 in range(0, longest, RANGE_STEP):
+            j = s[:, None] + k0 + steps  # (n, RANGE_STEP)
+            inr = j < e[:, None]
+            p = photons_t[0:9][:, torch.where(inr, j, 0)]  # (9, n, STEP)
+            dx, dy, dz = p[0] - x, p[1] - y, p[2] - z
+            d2 = dx * dx + dy * dy + dz * dz
+            ndot = p[3] * nx + p[4] * ny + p[5] * nz
+            ok = inr & (d2 < r2) & (ndot > ndot_min)
+            w = 1.0 - vec.sqrt(d2) * inv_r
+            contrib = torch.where(ok, w * p[6:9], 0.0)  # (3, n, STEP)
+            for t in range(min(RANGE_STEP, longest - k0)):
+                acc = acc + contrib[:, :, t]
+    return acc.T
+
+
+def gather_flux(point, normal, s_tab, e_tab, photons_t, radius):
+    """Cone-filter gather for n eye hits over their raster ranges (the JAX
+    gather_flux_pallas; n % 1024 == 0, ideally sorted by the own_key of
+    query_tables). point/normal (n, 3) f32; s_tab/e_tab (9, n) int32 from
+    query_tables; photons_t (16, Np_pad) f32 from build_photon_grid_morton;
+    radius a float. Returns flux (n, 3) f32: per lane, over the photons of
+    its ranges with d^2 < r^2 and n . n_p > 1e-3, the sum of
+    (1 - d / r) * flux.
+
+    CPU tensors run gather_flux_plain; CUDA tensors launch
+    csrc/gather_flux.cu (counted in `gather_flux.launches`); anything else
+    raises."""
+    if point.device.type == "cpu":
+        return gather_flux_plain(point, normal, s_tab, e_tab, photons_t,
+                                 radius)
+    if point.device.type != "cuda":
+        raise ValueError(f"gather_flux: no kernel for {point.device}")
+    n = point.shape[0]
+    np_pad = photons_t.shape[1] if photons_t.dim() == 2 else 0
+    check_tensors("gather_flux", point.device, [
+        ("point", point, torch.float32, (n, 3)),
+        ("normal", normal, torch.float32, (n, 3)),
+        ("s_tab", s_tab, torch.int32, (N_OFF, n)),
+        ("e_tab", e_tab, torch.int32, (N_OFF, n)),
+        ("photons_t", photons_t, torch.float32, (N_PLANES, np_pad))])
+    if not (n > 0 and n % BLOCK == 0 and np_pad > 0):
+        raise ValueError(f"gather_flux: want n % {BLOCK} == 0 and photons; "
+                         f"got n = {n}, {np_pad} photon columns")
+    hits = torch.cat([point.T, normal.T]).contiguous()
+    out = torch.empty(3, n, dtype=torch.float32, device=point.device)
+    lib = _build.load()
+    err = lib.pt_gather_flux(
+        hits.data_ptr(), s_tab.data_ptr(), e_tab.data_ptr(),
+        photons_t.data_ptr(), np_pad, float(_radius_f32(radius)[0]),
+        out.data_ptr(), n, torch.cuda.current_stream(point.device).cuda_stream)
+    _build.check(lib, err, "gather_flux")
+    gather_flux.launches += 1
+    return out.T
+
+
+gather_flux.launches = 0

@@ -1,11 +1,15 @@
-"""The per-bounce shading stage: the packed material table and the plain
-PyTorch version of the in-kernel shading.
+"""The per-bounce shading stage: the packed material table, the plain
+PyTorch version of the in-kernel shading, and the shading half of the
+two-kernel bounce.
 
 Port of pathtracer_tpu/ops/pallas/shade_kernel.py (pack_material_tables,
-shade_body and its helpers _atan_poly, _atan2, _acos, _lds). On the card this
-math runs inside the fused bounce kernel (csrc/fused_bounce.cu, which mirrors
-`shade` below line for line); the functions here are its plain version, used
-for CPU tensors and as the yardstick on the card.
+shade_body and its helpers _atan_poly, _atan2, _acos, _lds, shade_pallas).
+On the card this math runs in csrc/pt_bounce.cuh, which mirrors `shade`
+below line for line, inside the fused bounce kernel (csrc/fused_bounce.cu)
+and the shade kernel (csrc/shade.cu, launched by `shade_state`); the
+functions here are their plain version, used for CPU tensors and as the
+yardstick on the card. Square roots go through ops/vec.sqrt, which is
+correctly rounded on the CPU too, as CUDA's sqrtf is.
 
 The polynomial atan2/acos are kept as written (Mosaic had no acos/atan
 lowering) so the port matches the JAX kernel closely; so is the u15/u16
@@ -18,7 +22,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import _build
+from .. import vec
 from ..lds import M32, hi_word
+from . import check_tensors
+from .sphere_kernel import BIG, LANES, check_state
 
 _f32 = lambda x: float(np.float32(x))
 _PI = _f32(np.pi)
@@ -68,7 +76,7 @@ def _atan2(y, x):
 
 def _acos(x):
     """acos via atan2(sqrt((1-x)(1+x)), x)."""
-    s = torch.sqrt(torch.clamp((1.0 - x) * (1.0 + x), min=0.0))
+    s = vec.sqrt(torch.clamp((1.0 - x) * (1.0 + x), min=0.0))
     return _atan2(s, x)
 
 
@@ -168,13 +176,13 @@ def shade(pack_table, state, off, idx, hit, limbs, bg, rad_in, bg_mode: int):
     c_c = quad_f - r2
     disc = r2 - quad_f + bp * bp * inv_a
     sgn = torch.where(bp >= 0.0, 1.0, -1.0)
-    qq = sgn * torch.sqrt(torch.clamp(a_q * disc, min=0.0)) + bp
+    qq = sgn * vec.sqrt(torch.clamp(a_q * disc, min=0.0)) + bp
     t = torch.where(c_c > 0.0, c_c / qq, qq * inv_a)
 
     # hit point + flipped normal
     p0, p1, p2 = o0 + t * d0, o1 + t * d1, o2 + t * d2
     n0, n1, n2 = p0 - cx, p1 - cy, p2 - cz
-    ninv = 1.0 / torch.sqrt(torch.clamp(n0 * n0 + n1 * n1 + n2 * n2,
+    ninv = 1.0 / vec.sqrt(torch.clamp(n0 * n0 + n1 * n1 + n2 * n2,
                                         min=_f32(1e-38)))
     n0, n1, n2 = n0 * ninv, n1 * ninv, n2 * ninv
     ddn = d0 * n0 + d1 * n1 + d2 * n2
@@ -196,7 +204,7 @@ def shade(pack_table, state, off, idx, hit, limbs, bg, rad_in, bg_mode: int):
 
     # tangent frame quaternion
     gw = 1.0 + n2
-    gnorm = 1.0 / torch.sqrt(torch.clamp(gw * gw + n1 * n1 + n0 * n0,
+    gnorm = 1.0 / vec.sqrt(torch.clamp(gw * gw + n1 * n1 + n0 * n0,
                                          min=_f32(1e-38)))
     qw = gw * gnorm
     qx = n1 * gnorm
@@ -214,11 +222,11 @@ def shade(pack_table, state, off, idx, hit, limbs, bg, rad_in, bg_mode: int):
     v = _lds(off, int(limbs[1, 0]), int(limbs[1, 1]))
 
     # scatter: lambertian cosine hemisphere
-    rr = torch.sqrt(u)
+    rr = vec.sqrt(u)
     th = v * _TWO_PI
     lam0 = rr * torch.cos(th)
     lam1 = rr * torch.sin(th)
-    lam2 = torch.sqrt(torch.clamp(1.0 - u, min=0.0))
+    lam2 = vec.sqrt(torch.clamp(1.0 - u, min=0.0))
     lam_ok = lam2 > 0.0
     # metal: mirror + Schlick tint
     met0, met1, met2 = -wi0, -wi1, wi2
@@ -230,7 +238,7 @@ def shade(pack_table, state, off, idx, hit, limbs, bg, rad_in, bg_mode: int):
     tn2 = alb2 + (1.0 - alb2) * s5
     # dielectric
     ci = torch.clamp(wi2, 0.0, 1.0)
-    si = torch.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
+    si = vec.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
     ratio = torch.where(front, ior_inv, ior)
     r0s = (1.0 - ratio) / (1.0 + ratio)
     r0s = r0s * r0s
@@ -242,7 +250,7 @@ def shade(pack_table, state, off, idx, hit, limbs, bg, rad_in, bg_mode: int):
     pe0 = ratio * (-wi0)
     pe1 = ratio * (-wi1)
     pe2 = ratio * (cc - wi2)
-    para = -torch.sqrt(torch.abs(1.0 - (pe0 * pe0 + pe1 * pe1 + pe2 * pe2)))
+    para = -vec.sqrt(torch.abs(1.0 - (pe0 * pe0 + pe1 * pe1 + pe2 * pe2)))
     die0 = torch.where(do_refl, met0, pe0)
     die1 = torch.where(do_refl, met1, pe1)
     die2 = torch.where(do_refl, met2, pe2 + para)
@@ -284,3 +292,57 @@ def shade(pack_table, state, off, idx, hit, limbs, bg, rad_in, bg_mode: int):
                        sel(a0 * am0, a0), sel(a1 * am1, a1),
                        sel(a2 * am2, a2), new_alive.to(torch.float32)])
     return out, rad
+
+
+def shade_state_plain(state, pack_table, idx, off, at, limbs, bg, rad, *,
+                      bg_mode: int):
+    """Plain PyTorch version of shade_state: `shade` with hit = at < BIG
+    on a live lane."""
+    hit = (at < BIG) & (state[9] > 0.0)
+    return shade(pack_table, state, off, idx, hit, limbs, bg, rad, bg_mode)
+
+
+def shade_state(state, pack_table, idx, off, at, limbs, bg, rad, *,
+                bg_mode: int):
+    """The shading of one bounce from a given intersection (the JAX
+    shade_pallas): state (10, rows, 128) f32; pack_table (10, Sq, 128) f32;
+    idx (rows, 128) int32 and at (rows, 128) f32 from
+    sphere_kernel.intersect_state (idx must index pack_table); off
+    (rows, 128) int32 LDS offsets; limbs (2, 2) uint32; bg the two
+    background rows; rad (3, rows, 128) f32 radiance accumulator. A live
+    lane with at < BIG is shaded, a live lane that missed gains the
+    background and dies, a dead lane passes through. Returns new
+    (state, rad) tensors (the JAX kernel updates them in place).
+
+    CPU tensors run shade_state_plain; CUDA tensors launch csrc/shade.cu
+    (counted in `shade_state.launches`); anything else raises."""
+    if state.device.type == "cpu":
+        return shade_state_plain(state, pack_table, idx, off, at, limbs, bg,
+                                 rad, bg_mode=bg_mode)
+    rows = check_state("shade_state", state)
+    check_tensors("shade_state", state.device, [
+        ("state", state, torch.float32, (10, rows, LANES)),
+        ("pack_table", pack_table, torch.float32,
+         (PK_PLANES, pack_table.shape[1], LANES)),
+        ("idx", idx, torch.int32, (rows, LANES)),
+        ("off", off, torch.int32, (rows, LANES)),
+        ("at", at, torch.float32, (rows, LANES)),
+        ("rad", rad, torch.float32, (3, rows, LANES))])
+    limbs = np.asarray(limbs, np.uint32)
+    (w0, w1, w2), (s0, s1, s2) = bg
+    lib = _build.load()
+    state_out = torch.empty_like(state)
+    rad_out = torch.empty_like(rad)
+    err = lib.pt_shade_state(
+        pack_table.data_ptr(), pack_table.shape[1] * LANES, state.data_ptr(),
+        state_out.data_ptr(), idx.data_ptr(), off.data_ptr(), at.data_ptr(),
+        rad.data_ptr(), rad_out.data_ptr(), int(limbs[0, 0]),
+        int(limbs[0, 1]), int(limbs[1, 0]), int(limbs[1, 1]), w0, w1, w2, s0,
+        s1, s2, rows * LANES, int(bg_mode),
+        torch.cuda.current_stream(state.device).cuda_stream)
+    _build.check(lib, err, "shade_state")
+    shade_state.launches += 1
+    return state_out, rad_out
+
+
+shade_state.launches = 0

@@ -230,6 +230,28 @@ def make_photon_pass(scene: Scene, lights, photon_count: int,
     return trace_photons, total, lanes * max_bounces
 
 
+def _build_grid_morton_device(pos, nrm, flux, ok, r):
+    """The raster gather's photon grid, built on the device with no host
+    read (the JAX function of the same name): the grid origin is the valid
+    deposits' low corner moved down by 1e-5 + 1e-6 |lo| (so every valid
+    deposit lands at a cell index >= 0), the cell max(r, extent / 127), all
+    in float32. Returns (photons_t, start, count) of
+    gather_kernel.build_photon_grid_morton, the origin (3,) and the cell
+    (a 0-dim tensor). No renderer calls it: the photon mapper gathers over
+    photon chunks."""
+    dev = pos.device
+    f32 = lambda x: torch.tensor(np.float32(x), device=dev)
+    okm = ok[:, None]
+    glo = torch.amin(torch.where(okm, pos, BIG), dim=0)
+    ghi = torch.amax(torch.where(okm, pos, -BIG), dim=0)
+    glo = glo - (f32(1e-5) + f32(1e-6) * torch.abs(glo))
+    extent = torch.clamp(torch.amax(ghi - glo), min=_f32(1e-9))
+    cell = torch.maximum(f32(r), extent / f32(gk.SIDE - 1))
+    photons_t, start, count = gk.build_photon_grid_morton(pos, nrm, flux, ok,
+                                                          glo, cell)
+    return photons_t, start, count, glo, cell
+
+
 def scene_all_diffuse(scene: Scene, mesh=None) -> bool:
     """True when no valid primitive (nor the mesh) has a specular
     (metal/dielectric) material: then every eye path ends at its first

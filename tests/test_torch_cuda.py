@@ -26,7 +26,14 @@ The mesh kernels (the BVH8 walk, the tile-culled triangle kernel) must
 equal their plain versions exactly too, on a random triangle soup with
 rays of exact-zero direction components and on a small uv-sphere with
 empty tiles. The ganesha render on the card is held to the CPU render by
-the cornell bounds."""
+the cornell bounds.
+
+The two-kernel bounce (intersect_state, shade_state), the clustered sphere
+kernel and the raster-grid gather must equal their plain versions exactly;
+the two-kernel chain must equal the fused bounce kernel, and the
+fuse_bounce=False render the fused render, exactly. The clustered kernel
+finds the hits of intersect_spheres on every live lane; the raster gather
+sums the chunk gather's photons in another order (rtol 1e-4, atol 1e-6)."""
 
 import os
 
@@ -40,6 +47,7 @@ from pathtracer_tpu_torch.models import cornell, shirley
 from pathtracer_tpu_torch.ops.cuda import compact_kernel as ck
 from pathtracer_tpu_torch.ops.cuda import fused_bounce_kernel as fbk
 from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
+from pathtracer_tpu_torch.ops.cuda import shade_kernel as shk
 from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
 from pathtracer_tpu_torch.ops.cuda import tri_kernel as tk
 from pathtracer_tpu_torch.scene import TRI_A, TRI_E1, TRI_E2
@@ -400,3 +408,130 @@ def test_mesh_wrappers_refuse_malformed_input(dev):
         ttk.intersect_tile_tris(table, start, start[:1].long(), d, 32)
     with pytest.raises(ValueError):  # table on the CPU
         ttk.intersect_tile_tris(table.cpu(), start, start[:1], d, 32)
+
+
+def test_two_kernel_bounce_matches_plain_and_fused(dev):
+    """Three bounces of a 128x64 shirley wavefront: each kernel against its
+    plain version, and the chain against the fused kernel."""
+    scene, cam, bg = shirley.build(2.0, dev)
+    r = Renderer(scene, cam, bg, 128, 64, 1, 3, dev)
+    state, off = r.initial_wavefront(0)
+    rad = torch.zeros(3, state.shape[1], 128, device=dev)
+    for b in range(3):
+        kw = dict(origin_zero=b == 0,
+                  block_lists=(r.lists, r.counts) if b == 0 else None)
+        before = sk.intersect_state.launches
+        at, idx = sk.intersect_state(r.sph_table, state, **kw)
+        assert sk.intersect_state.launches == before + 1
+        want = sk.intersect_state_plain(r.sph_table, state, **kw)
+        assert torch.equal(at, want[0]) and torch.equal(idx, want[1])
+        limbs = r.sampler.limbs(2 + 2 * b, 3 + 2 * b)
+        args = (state, r.pack_table, idx, off, at, limbs, bg[1], rad)
+        st_k, rad_k = shk.shade_state(*args, bg_mode=bg[0])
+        st_p, rad_p = shk.shade_state_plain(*args, bg_mode=bg[0])
+        assert torch.equal(st_k, st_p) and torch.equal(rad_k, rad_p)
+        st_f, rad_f = fbk.fused_bounce(r.sph_table, state, r.pack_table, off,
+                                       limbs, bg[1], rad, bg_mode=bg[0], **kw)
+        assert torch.equal(st_k, st_f) and torch.equal(rad_k, rad_f)
+        state, rad = st_k, rad_k
+
+
+def test_two_kernel_render_equals_fused_render(dev):
+    scene, cam, bg = shirley.build(2.0, dev)
+    sk.intersect_state.launches = shk.shade_state.launches = 0
+    fbk.fused_bounce.launches = 0
+    img0, segs0 = make_render_fn(cam, bg, 160, 80, 2, 8, dev,
+                                 fuse_bounce=False)(scene)
+    assert sk.intersect_state.launches > 0 and shk.shade_state.launches > 0
+    assert fbk.fused_bounce.launches == 0
+    img1, segs1 = make_render_fn(cam, bg, 160, 80, 2, 8, dev)(scene)
+    assert segs0 == segs1 and torch.equal(img0, img1)
+
+
+def test_intersect_clustered_kernel_matches_plain(dev):
+    """Shirley's 178 clusters against 8,192 rays from the shirley camera
+    and from points near its spheres, with an all-dead block."""
+    scene, cam, _ = shirley.build(2.0, dev)
+    tables = sk.pack_spheres_clustered(scene.center, scene.radius,
+                                       scene.valid)
+    rng = np.random.default_rng(11)
+    n = 8192
+    cx, cy = (torch.from_numpy(rng.random(n, np.float32)).to(dev)
+              for _ in range(2))
+    d = cam.ray_dirs(cx, cy)
+    c = scene.center[torch.from_numpy(rng.integers(0, 531, n)).to(dev)]
+    org = torch.where(torch.arange(n, device=dev)[:, None] < n // 2, 0.0,
+                      c + torch.from_numpy(rng.uniform(-2, 2, (n, 3))
+                                           .astype(np.float32)).to(dev))
+    d = torch.where(torch.arange(n, device=dev)[:, None] < n // 2, d,
+                    torch.nn.functional.normalize(d + 0.3, dim=1))
+    alive = torch.from_numpy(rng.random(n) < 0.85).to(dev)
+    alive[1024:2048] = False
+    args = (org.contiguous(), d.contiguous(), alive)
+    before = sk.intersect_clustered.launches
+    got = sk.intersect_clustered(tables, *args)
+    assert sk.intersect_clustered.launches == before + 1
+    want = sk.intersect_clustered_plain(tables, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    table = sk.pack_spheres(scene.center, scene.radius, scene.valid)
+    brute = sk.intersect_spheres(table, *args)
+    assert torch.equal(got[2][alive], brute[2][alive])
+    assert torch.equal(got[0][alive], brute[0][alive])
+    assert bool(got[2].any()) and not bool(got[2][1024:2048].any())
+
+
+def test_gather_flux_kernel_matches_plain(dev):
+    """The raster gather over a 96x96 cornell iteration's photons and eye
+    hits, on the port's device-built grid: the kernel against its plain
+    version on every block, and against the chunk gather."""
+    scene, cam, lights = cornell.build(1.0, dev)
+    trace, _, _ = ppm.make_photon_pass(scene, lights, 5000, 4)
+    pos, nrm, flux, ok, _ = trace(0)
+    eye = ppm.make_eye_pass(cam, 96, 96, 4, 5000, scene)
+    r = ppm.PPMRenderer(scene, cam, lights, 96, 96).radius(1)
+    pt, nm, _, act = eye.walk(0)
+    photons_t, start, count, glo, cell = ppm._build_grid_morton_device(
+        pos, nrm, flux, ok, r)
+    s, e, own = gk.query_tables(pt, act, glo, cell, start, count)
+    perm = torch.argsort(own, stable=True)
+    args = (pt[perm].contiguous(), nm[perm].contiguous(),
+            s[:, perm].contiguous(), e[:, perm].contiguous(), photons_t, r)
+    before = gk.gather_flux.launches
+    got = gk.gather_flux(*args)
+    assert gk.gather_flux.launches == before + 1
+    want = gk.gather_flux_plain(*args)
+    assert torch.equal(got, want), (got - want).abs().max()
+    photons_c, sbox = gk.build_photon_chunks(pos, nrm, flux, ok)
+    chunks = gk.gather_flux_chunks(args[0], args[1], act[perm], sbox,
+                                   photons_c, r)
+    assert float(got.abs().sum()) > 0
+    assert torch.allclose(got, chunks, rtol=1e-4, atol=1e-6)
+
+
+def test_new_wrappers_refuse_malformed_input(dev):
+    state = torch.zeros(10, 8, 128, device=dev)
+    sph = torch.zeros(4, 8, device=dev)
+    with pytest.raises(ValueError):  # state rows not a multiple of 8
+        sk.intersect_state(sph, state[:, :7].contiguous(), origin_zero=False)
+    with pytest.raises(ValueError):  # table on the CPU
+        sk.intersect_state(sph.cpu(), state, origin_zero=False)
+    i32 = torch.zeros(8, 128, dtype=torch.int32, device=dev)
+    f32 = torch.zeros(8, 128, device=dev)
+    pack = torch.zeros(10, 1, 128, device=dev)
+    rad = torch.zeros(3, 8, 128, device=dev)
+    limbs = np.zeros((2, 2), np.uint32)
+    bgc = ((1.0, 1.0, 1.0), (0.5, 0.7, 1.0))
+    with pytest.raises(ValueError):  # idx of the wrong dtype
+        shk.shade_state(state, pack, f32, i32, f32, limbs, bgc, rad,
+                        bg_mode=1)
+    org = torch.zeros(1024, 3, device=dev)
+    alive = torch.ones(1024, dtype=torch.bool, device=dev)
+    tables = (torch.zeros(4, 16, device=dev), torch.zeros(4, 1, device=dev),
+              torch.zeros(16, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):  # int64 perm
+        sk.intersect_clustered(tables, org, org, alive)
+    ranges = torch.zeros(9, 1024, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # photons_t of the wrong height
+        gk.gather_flux(org, org, ranges, ranges,
+                       torch.zeros(9, 128, device=dev), 0.1)

@@ -153,10 +153,15 @@ def test_cli_refuses_missing_cuda_and_unported_scenes():
 
 def test_port_imports_no_jax():
     """The port and chip_smoke.py import neither jax nor the JAX package.
-    Checked in a fresh interpreter, since this process has jax loaded."""
-    code = ("import sys\n"
-            "import pathtracer_tpu_torch.cli, pathtracer_tpu_torch.integrator\n"
-            "import pathtracer_tpu_torch._build\n"
+    Checked in a fresh interpreter, since this process has jax loaded, by
+    importing every module of the port."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import pathtracer_tpu_torch as pkg\n"
+            "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "'pathtracer_tpu_torch.')]\n"
+            "assert 'pathtracer_tpu_torch.ops.cuda.gather_kernel' in mods\n"
+            "for m in mods:\n"
+            "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'pathtracer_tpu.')) or m == 'pathtracer_tpu']\n"
             "assert not bad, bad\n")
