@@ -39,7 +39,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
      hits at r(1), the kernel over all 352 blocks and the plain version on
      32 of them (the 16 with the longest chunk lists and 16 evenly spaced
      others; blocks are independent), with times (CUDA events, and device
-     time from the profiler); then the raster-grid gather on the same
+     time from the profiler, beside the one-CTA-per-list kernel's), its
+     work items (segments of SEG list positions: count, the heaviest), the
+     hit-photon pairs its lists hold and those its warps walk, and its
+     bound, counted on the walked pairs, over the 32 blocks and over all
+     352; then the raster-grid gather on the same
      photons and eye hits: the grid from ppm._build_grid_morton_device,
      query_tables, hits sorted by their cell's Morton key, gather_flux on
      all blocks against its plain version on 32 (the 16 with the longest
@@ -49,7 +53,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
   7. cornell render: `cornell-box 600x600, 10 iterations, 75,000 photons,
      4 bounces` through PPMRenderer.render (what the CLI calls), with the
      three kernels' launch counts, the first iteration's seconds and the
-     median s/iter of iterations 2-10, the photon map length of each
+     median s/iter of iterations 2-10, the host's wait at the gather's
+     read of its item count, the photon map length of each
      iteration against the reference file's (within 0.1%), the RMSE of the
      averaged linear image against
      scenes/ref_cornell_600x600_it10_pc75k_b4.npz (JAX on the CPU; below
@@ -68,16 +73,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
      lanes, which also counts each lane's steps and the table rows read);
      intersect_tile_tris on iteration 1's eye primaries (608 x 600 rays),
      the plain version on 32 tiles (the 16 with the longest lists and 16
-     spaced) and the kernel on the same tiles and on all 361;
+     spaced) and the kernel on the same tiles and on all 361, with its
+     work items (one per 256-triangle chunk) and device time beside the
+     one-CTA-per-tile kernel's;
  11. ganesha eye pass and render: first the eye pass alone, at 600x600
      over the JAX reference's own iteration-1 deposits, against the JAX
      image of that iteration (scenes/ref_ganesha_600x600_it1_photons.npz;
-     RMSE within 0.5% of its RMS); then `ganesha 600x600, 10 iterations,
+     RMSE within 0.5% of its RMS), with the gather's lists and items there
+     and its time; then `ganesha 600x600, 10 iterations,
      75,000 photons, 4 bounces` through PPMRenderer.render, with the five
      kernels' launch
      counts, the first iteration's seconds and the median s/iter of
-     iterations 2-10, photon map lengths against the reference file's
-     (within 0.1%), the RMSE against
+     iterations 2-10, the host's wait at the gather's read, photon map
+     lengths against the reference file's (within 0.1%), the RMSE against
      scenes/ref_ganesha_600x600_it10_pc75k_b4.npz (JAX on the CPU) and the
      RMSE of 8x8-pixel means (budgets below), and one profiled warm
      iteration (table in chiprun_out/ganesha_profile.txt);
@@ -93,6 +101,10 @@ it, and must stay 0.
 Then a JSON line of kernel results, the nvidia-smi line, and the final
 `{"ok": true, "device": {...}}` line. Without a CUDA device, or without the
 package beside this script, it fails before printing any result.
+
+    python3 chip_smoke.py --sweep-seg
+
+instead times the chunk gather at each SEG of SWEEP_SEGS (sweep_seg).
 """
 
 from __future__ import annotations
@@ -167,6 +179,16 @@ OPS = dict(sphere=20, fused_sphere=18, listed_sphere=9, cull=17, shade=300,
            shade_miss=17, tri=46, tile_tri=44, gather=22, node=185)
 # blocks the plain raster gather is held on
 RASTER_LONGEST = RASTER_SPACED = 16
+# device ms of the one-CTA-per-list kernels that the split-list kernels
+# replaced (PERF.md, §6; NVIDIA H100 80GB HBM3, 700 W): the chunk gather
+# on cornell iteration 1 over all 352 blocks and over the 32 checked
+# ones, and in the profiled cornell and ganesha iterations; the tile
+# kernel over ganesha's 361 tiles
+BEFORE_SPLIT_MS = dict(gather_all_blocks=8.120, gather_checked_blocks=7.840,
+                       gather_cornell_iteration=6.00,
+                       gather_ganesha_iteration=4.296, tile=3.109)
+# list positions per gather work item tried by --sweep-seg
+SWEEP_SEGS = (4, 8, 16, 32, 64)
 # Kernel vs plain on the card: none. The kernels are built without FMA
 # contraction and fast math and round every operation as the plain versions
 # do, so state, radiance and alive flags must be equal. (The 1e-2 / 1e-6
@@ -386,6 +408,84 @@ def read_no_path(path: str, launches: dict) -> None:
     """Move the no-path kernels' counts out of one render's `launches` into
     NO_PATH_LAUNCHES[path]."""
     NO_PATH_LAUNCHES[path] = {k: launches.pop(k) for k in no_path_kernels()}
+
+
+def gather_walk(torch, gk, pt, act, lists, counts, sbox, radius):
+    """The chunk gather's listed entries (block, list position) on
+    Morton-sorted hits and their block lists: (blk, kpos, chunk, listed
+    (entries, N_SUBS) bool, the sub-chunks each entry's mask lists, walked
+    (entries, N_SUBS) int64, the active hits of the warps that walk each
+    listed sub-chunk: those whose active-hit box, grown by the padded
+    radius, meets the sub-chunk's box)."""
+    dev = pt.device
+    nblk = counts.shape[0]
+    live = torch.arange(lists.shape[1], device=dev)[None, :] \
+        < counts[:, None]
+    blk, kpos = torch.nonzero(live, as_tuple=True)
+    words = lists[blk, kpos].long() & 0xFFFFFFFF
+    chunk = words & ((1 << gk.MASK_SHIFT) - 1)
+    mask = words >> gk.MASK_SHIFT
+    r_pad = float(gk._radius_f32(radius)[3])
+    warp_act = act.reshape(nblk, 32, 32)
+    warp_pt = pt.reshape(nblk, 32, 32, 3)
+    lo = torch.where(warp_act[..., None], warp_pt, gk.BIG).amin(2) - r_pad
+    hi = torch.where(warp_act[..., None], warp_pt, -gk.BIG).amax(2) + r_pad
+    warp_n = warp_act.sum(2)  # (nblk, 32) active hits per warp
+    listed, walked = [], []
+    for t in range(gk.N_SUBS):
+        on = ((mask >> t) & 1).bool()
+        box = sbox[:, chunk * gk.N_SUBS + t]
+        meets = on[:, None].expand(-1, 32).clone()
+        for ax in range(3):
+            meets &= (box[3 + ax][:, None] >= lo[blk, :, ax]) \
+                & (box[ax][:, None] <= hi[blk, :, ax])
+        listed.append(on)
+        walked.append((meets * warp_n[blk]).sum(1))
+    return blk, kpos, chunk, torch.stack(listed, 1), torch.stack(walked, 1)
+
+
+def gather_work(torch, gk, act, counts, walk):
+    """The chunk gather's work from gather_walk's `walk`: the items
+    (segments of SEG list positions), the hit-photon pairs the lists hold
+    (each active hit of a block x the photons of its listed sub-chunks) and
+    those the kernel's warps walk, and the heaviest item's sub-chunks and
+    pairs."""
+    blk, kpos, _, listed, walked = walk
+    dev = act.device
+    item_start = gk.block_items(counts).long()
+    n_items = int(item_start[-1])
+    item = item_start[blk] + kpos // gk.SEG
+    blk_n = act.reshape(counts.shape[0], 1024).sum(1)
+    subs = listed.sum(1)
+    item_subs = torch.zeros(n_items, dtype=torch.int64, device=dev) \
+        .index_add_(0, item, subs)
+    item_pairs = torch.zeros(n_items, dtype=torch.int64, device=dev) \
+        .index_add_(0, item, subs * blk_n[blk]) * gk.SUB
+    per_block = item_start[1:] - item_start[:-1]
+    return dict(items=n_items, items_per_block_max=int(per_block.max()),
+                item_subchunks_max=int(item_subs.max()),
+                item_pairs_max=int(item_pairs.max()),
+                entries=int(blk.numel()),
+                listed_pairs=int((subs * blk_n[blk]).sum()) * gk.SUB,
+                walked_pairs=int(walked.sum()) * gk.SUB)
+
+
+def timed_host_read(torch, gk, waits: list):
+    """Wrap gk.block_items so that each gather also records, in `waits`,
+    the host's wait (ms) for the device at the point where the wrapper
+    reads the item count: what that read costs the caller. Returns the
+    function to restore."""
+    items = gk.block_items
+
+    def wrapped(counts):
+        out = items(counts)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        waits.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    gk.block_items = wrapped
+    return items
 
 
 def listed_pairs(torch, r, state):
@@ -786,28 +886,34 @@ def ppm_phases(torch, np, dev, smi):
     rows = torch.cat([torch.arange(b * 1024, (b + 1) * 1024, device=dev)
                       for b in blocks])
     sub = (pt[rows].contiguous(), nm[rows].contiguous(), act[rows])
-    # the checked blocks' work: active hits x the photons of their listed
-    # sub-chunks; bytes: the hits, the lists, the distinct listed chunks
-    pairs, words = 0, []
-    for b in blocks:
-        w = lists[b, :counts[b]].long()
-        n_subs = sum(int(((w >> (gk.MASK_SHIFT + k)) & 1).sum())
-                     for k in range(gk.N_SUBS))
-        pairs += int(act[b * 1024:(b + 1) * 1024].sum()) * n_subs * gk.SUB
-        words.append(w)
-    words = torch.cat(words)
-    n_chunks = int(torch.unique(words & ((1 << gk.MASK_SHIFT) - 1)).numel())
-    g_bound = bound(rows.numel() * (25 + 12) + words.numel() * 4
-                    + n_chunks * gk.CHB * 9 * 4, pairs * OPS["gather"])
+    walk = gather_walk(torch, gk, pt, act, lists, counts, sbox, r1)
+    blk, _, chunk, _, walked = walk
+
+    # the bound's work, for the checked blocks and for all: the walked
+    # pairs (each listed sub-chunk's photons x the active hits of the warps
+    # whose box meets it; every other pair adds an exact +0.0); bytes: the
+    # hits in and sums out, the list words, the walked sub-chunks' photons
+    def gather_bound(bl):
+        sel = torch.isin(blk, torch.as_tensor(list(bl), device=dev))
+        keys = (chunk[sel, None] * gk.N_SUBS
+                + torch.arange(gk.N_SUBS, device=dev))[walked[sel] > 0]
+        return bound(len(bl) * 1024 * (25 + 12) + int(sel.sum()) * 4
+                     + int(torch.unique(keys).numel()) * gk.SUB * 9 * 4,
+                     int(walked[sel].sum()) * gk.SUB * OPS["gather"])
+
+    g_bound = gather_bound(blocks)
+    g_bound_all = gather_bound(range(nblk))
+    work = gather_work(torch, gk, act, counts, walk)
     full = gk.gather_flux_chunks(pt, nm, act, sbox, photons_t, r1)
     torch.cuda.synchronize()
     err_g, g_ms_sub, g_plain_ms, (want_rows,) = compare(
         torch, "gather_flux_chunks",
         lambda: gk.gather_flux_chunks(*sub, sbox, photons_t, r1),
         lambda: gk.gather_flux_chunks_plain(*sub, sbox, photons_t, r1),
-        f"{len(blocks)}_of_{nblk}_blocks", kernel="gather_chunks_kernel",
+        f"{len(blocks)}_of_{nblk}_blocks", kernel="gather_chunks_",
         plain_reps=3, plain_batch=1, plain_prof=1,
-        list_lengths=json.dumps(counts[blocks].tolist()))
+        list_lengths=json.dumps(counts[blocks].tolist()),
+        before_split_device_ms=BEFORE_SPLIT_MS["gather_checked_blocks"])
     require(torch.equal(full[rows], want_rows),
             "the full-size gather differs from the plain version on the "
             "checked blocks")
@@ -815,12 +921,18 @@ def ppm_phases(torch, np, dev, smi):
         pt, nm, act, sbox, photons_t, r1))
     _, per, _, _ = device_times(torch, lambda: gk.gather_flux_chunks(
         pt, nm, act, sbox, photons_t, r1), reps=5)
+    g_dev_ms = kernel_ms(per, "gather_chunks_")
     phase("gather_flux_chunks_full", hits=pt.shape[0], blocks=nblk,
           photon_columns=photons_t.shape[1], radius=f"{r1:.6f}",
-          list_max=int(counts.max()), list_mean=f"{float(counts.float().mean()):.2f}",
-          ms=f"{g_ms:.4f}",
-          device_ms=f"{kernel_ms(per, 'gather_chunks_kernel'):.4f}",
-          wrapper_device_ms=f"{sum(per.values()):.4f}")
+          list_max=int(counts.max()),
+          list_mean=f"{float(counts.float().mean()):.2f}", seg=gk.SEG,
+          **work, ms=f"{g_ms:.4f}", device_ms=f"{g_dev_ms:.4f}",
+          items_kernel_ms=f"{kernel_ms(per, 'gather_chunks_items'):.4f}",
+          combine_kernel_ms=f"{kernel_ms(per, 'gather_chunks_combine'):.4f}",
+          before_split_device_ms=BEFORE_SPLIT_MS["gather_all_blocks"],
+          wrapper_device_ms=f"{sum(per.values()):.4f}",
+          bound_ms=f"{g_bound_all['bound_ms']:.4f}",
+          bound_ms_checked_blocks=f"{g_bound['bound_ms']:.4f}")
     raster = raster_gather_phase(torch, np, (pos, nrm, flux, ok), eye_hits,
                                  r1, (photons_t, sbox))
 
@@ -837,10 +949,13 @@ def ppm_phases(torch, np, dev, smi):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
+    waits = []
+    block_items = timed_host_read(torch, gk, waits)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img_sum = rend.render(checkpoint_cb=tick)
     launches = {k: fn.launches for k, fn in counters.items()}
+    gk.block_items = block_items
     read_no_path("cornell", launches)
     iter_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
     lengths = [int(n) for n in rend.photon_map_lengths]
@@ -863,6 +978,7 @@ def ppm_phases(torch, np, dev, smi):
           reference_lengths=json.dumps(ref_len),
           max_length_rel_err=f"{len_err:.3e}",
           photon_segments=json.dumps(segments), rmse=f"{rmse:.6e}",
+          host_read_wait_ms=json.dumps([round(w, 4) for w in waits]),
           launches=json.dumps(launches), gpu=json.dumps(smi))
     require(all(n > 0 for n in launches.values()),
             f"a kernel did not run on the cornell path: {launches}")
@@ -892,7 +1008,8 @@ def ppm_phases(torch, np, dev, smi):
           device_idle_share_of_median=f"{1 - busy_ms / median_ms:.3f}",
           intersect_spheres_ms=f"{kernel_ms(per, 'intersect_spheres_kernel'):.3f}",
           intersect_tris_ms=f"{kernel_ms(per, 'intersect_tris_kernel'):.3f}",
-          gather_ms=f"{kernel_ms(per, 'gather_chunks_kernel'):.3f}",
+          gather_ms=f"{kernel_ms(per, 'gather_chunks_'):.3f}",
+          gather_before_split_ms=BEFORE_SPLIT_MS["gather_cornell_iteration"],
           device_ops=f"{n_ops:.0f}", kernels_seen=len(per))
 
     # --- 8. the cornell CLI ----------------------------------------------
@@ -925,9 +1042,14 @@ def ppm_phases(torch, np, dev, smi):
               **times[("bound_tris", "eye_b0")],
               shape="cornell eye bounce-0 rays, 360448 x 18 valid triangles"),
         entry("gather_flux_chunks", "gather_chunks.cu",
-              "pallas/gather_kernel.py:468", err_g, g_ms_sub, g_plain_ms, **g_bound,
-              shape=f"{len(blocks)} of {nblk} blocks at iteration 1",
-              ms_all_blocks=g_ms),
+              "pallas/gather_kernel.py:468", err_g, g_ms_sub, g_plain_ms,
+              **g_bound, shape=f"{len(blocks)} of {nblk} blocks at "
+              "iteration 1 (ms, plain_ms, bound_ms); all blocks (the "
+              "*_all_blocks keys)", ms_all_blocks=g_ms,
+              device_ms_all_blocks=g_dev_ms,
+              bound_ms_all_blocks=g_bound_all["bound_ms"],
+              bound_by_all_blocks=g_bound_all["bound_by"],
+              items_all_blocks=work["items"], seg=gk.SEG),
     ]
     return kernels, launches, raster
 
@@ -1071,9 +1193,15 @@ def mesh_kernel_phases(torch, np, dev):
     t_bound = bound(d.numel() * 4 + rows * size * 16
                     + real_cols * 10 * 4 + tile[1].numel() * 4
                     + tile[2].numel() * 4, pairs * OPS["tile_tri"])
+    # the work items: one per chunk of the CSR
+    items = len(tt.tile_chunk_src)
     phase("intersect_tile_tris_full", rays=rows * size, tiles=n_tiles,
-          pairs=pairs, ms=f"{t_ms:.4f}",
+          pairs=pairs, items=items, ms=f"{t_ms:.4f}",
           device_ms=device_ms_field(per, "intersect_tile_tris"),
+          items_kernel_ms=device_ms_field(per, "intersect_tile_tris_items"),
+          combine_kernel_ms=device_ms_field(per,
+                                            "intersect_tile_tris_combine"),
+          before_split_device_ms=BEFORE_SPLIT_MS["tile"],
           wrapper_device_ms=f"{sum(per.values()):.4f}",
           bound_ms=f"{t_bound['bound_ms']:.4f}",
           hits=int((full[0] < ttk.BIG).sum()))
@@ -1088,7 +1216,10 @@ def mesh_kernel_phases(torch, np, dev):
               "pallas/tile_tri_kernel.py:142", err_t, t_ms, t_plain_ms,
               **t_bound, shape=f"ganesha eye primaries, all {n_tiles} tiles "
               f"(ms, bound_ms); {len(tiles)} tiles (plain_ms, "
-              "ms_checked_tiles)", ms_checked_tiles=t_ms_sub),
+              "ms_checked_tiles)", ms_checked_tiles=t_ms_sub,
+              device_ms=(kernel_ms(per, "intersect_tile_tris") if any(
+                  "intersect_tile_tris" in k for k in per) else None),
+              items=items),
     ]
     return rend, kernels
 
@@ -1120,10 +1251,13 @@ def ganesha_phases(torch, np, smi, rend):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
+    waits = []
+    block_items = timed_host_read(torch, gk, waits)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img_sum = rend.render(checkpoint_cb=tick)
     launches = {k: fn.launches for k, fn in counters.items()}
+    gk.block_items = block_items
     read_no_path("ganesha", launches)
     iter_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
     lengths = [int(n) for n in rend.photon_map_lengths]
@@ -1158,6 +1292,7 @@ def ganesha_phases(torch, np, smi, rend):
           pixels_off_by_1e_2=int((np.abs(img - ref_img).max(axis=-1)
                                   > 1e-2).sum()),
           black_pixel_share=f"{float((ref_img.max(axis=-1) == 0).mean()):.4f}",
+          host_read_wait_ms=json.dumps([round(w, 4) for w in waits]),
           launches=json.dumps(launches), gpu=json.dumps(smi))
     require(all(n > 0 for n in launches.values()),
             f"a kernel did not run on the ganesha path: {launches}")
@@ -1190,7 +1325,9 @@ def ganesha_phases(torch, np, smi, rend):
           device_idle_share_of_median=f"{1 - busy_ms / median_ms:.3f}",
           bvh8_walk_ms=f"{kernel_ms(per, 'bvh8_walk_kernel'):.3f}",
           tile_ms=f"{kernel_ms(per, 'intersect_tile_tris'):.3f}",
-          gather_ms=f"{kernel_ms(per, 'gather_chunks_kernel'):.3f}",
+          gather_ms=f"{kernel_ms(per, 'gather_chunks_'):.3f}",
+          gather_before_split_ms=BEFORE_SPLIT_MS["gather_ganesha_iteration"],
+          tile_before_split_ms=BEFORE_SPLIT_MS["tile"],
           intersect_tris_ms=f"{kernel_ms(per, 'intersect_tris_kernel'):.3f}",
           intersect_spheres_ms=f"{kernel_ms(per, 'intersect_spheres_kernel'):.3f}",
           device_ops=f"{n_ops:.0f}", kernels_seen=len(per),
@@ -1260,7 +1397,28 @@ def eye_witness(torch, np, rend):
                             rend.scene, 1, rend.mesh, tile)
     deps = [torch.from_numpy(wit[k]).to(dev) for k in ("pos", "nrm", "flux")]
     ok = torch.ones(deps[0].shape[0], dtype=torch.bool, device=dev)
-    one = eye(0, r1, gk.build_photon_chunks(*deps, ok)).flip(0)
+    photons_t, sbox = gk.build_photon_chunks(*deps, ok)
+    one = eye(0, r1, (photons_t, sbox)).flip(0)
+    # the gather there: the floor's photons spread over 10,000-unit
+    # triangles, so its lists differ from cornell's
+    pt, nm, _, act = eye.walk(0)
+    perm = torch.argsort(gk.hit_morton_keys(pt, act), stable=True)
+    pt, nm, act = pt[perm].contiguous(), nm[perm].contiguous(), act[perm]
+    lists, counts = gk.block_chunk_lists(pt, act, sbox, r1)
+    work = gather_work(torch, gk, act, counts, gather_walk(
+        torch, gk, pt, act, lists, counts, sbox, r1))
+    g_ms = time_ms(torch, lambda: gk.gather_flux_chunks(
+        pt, nm, act, sbox, photons_t, r1))
+    _, per, _, _ = device_times(torch, lambda: gk.gather_flux_chunks(
+        pt, nm, act, sbox, photons_t, r1), reps=5)
+    phase("gather_flux_chunks_ganesha", hits=pt.shape[0],
+          blocks=counts.shape[0], photon_columns=photons_t.shape[1],
+          list_max=int(counts.max()),
+          list_mean=f"{float(counts.float().mean()):.2f}", **work,
+          ms=f"{g_ms:.4f}",
+          device_ms=f"{kernel_ms(per, 'gather_chunks_'):.4f}",
+          before_split_device_ms_profiled_iteration=BEFORE_SPLIT_MS[
+              "gather_ganesha_iteration"])
     one = one.cpu().numpy().astype(np.float64)
     want = wit["img"].astype(np.float64)
     rows = -(-size // ttk.TILE) * ttk.TILE  # the band of whole tiles
@@ -1300,6 +1458,59 @@ def entry(name, source, replaces, err, kms, pms, **kw):
                 source="pathtracer_tpu_torch/csrc/" + source,
                 replaces="pathtracer_tpu/ops/" + replaces, max_abs_err=err,
                 ms=kms, plain_ms=pms, library_ms=None, **kw)
+
+
+def sweep_seg() -> None:
+    """The chunk gather's device ms at each SEG of SWEEP_SEGS, on cornell
+    iteration 1's eye hits at r(1) as phase 6 makes them: per setting, the
+    profiler's ms per call over 5 calls, taken twice (the settings in
+    order, then in reverse). At each SEG the kernel must equal its plain
+    version on the 4 blocks with the longest lists. Prints one JSON line
+    with the card's name and power limit."""
+    import torch
+
+    from pathtracer_tpu_torch import ppm
+    from pathtracer_tpu_torch.models import cornell
+    from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    dev = torch.device("cuda", 0)
+    size, photons, bounces = PPM_SIZE, PPM_PHOTONS, PPM_BOUNCES
+    scene, cam, lights = cornell.build(1.0, dev)
+    trace, _, _ = ppm.make_photon_pass(scene, lights, photons, bounces)
+    eye = ppm.make_eye_pass(cam, size, size, bounces, photons, scene)
+    r1 = ppm.PPMRenderer(scene, cam, lights, size, size,
+                         photon_count=photons, max_bounces=bounces,
+                         verbose=False).radius(1)
+    pos, nrm, flux, ok, _ = trace(0)
+    photons_t, sbox = gk.build_photon_chunks(pos, nrm, flux, ok)
+    pt, nm, _, act = eye.walk(0)
+    perm = torch.argsort(gk.hit_morton_keys(pt, act), stable=True)
+    pt, nm, act = pt[perm].contiguous(), nm[perm].contiguous(), act[perm]
+    _, counts = gk.block_chunk_lists(pt, act, sbox, r1)
+    top = torch.argsort(counts, descending=True, stable=True)[:4].tolist()
+    rows = torch.cat([torch.arange(b * 1024, (b + 1) * 1024, device=dev)
+                      for b in sorted(top)])
+    sub = (pt[rows].contiguous(), nm[rows].contiguous(), act[rows], sbox,
+           photons_t, r1)
+    args = (pt, nm, act, sbox, photons_t, r1)
+    shipped, by_seg = gk.SEG, {}
+    for seg in SWEEP_SEGS + SWEEP_SEGS[::-1]:
+        gk.SEG = seg
+        if seg not in by_seg:
+            require(torch.equal(gk.gather_flux_chunks(*sub),
+                                gk.gather_flux_chunks_plain(*sub)),
+                    f"the gather at SEG {seg} differs from its plain version")
+            by_seg[seg] = dict(items=int(gk.block_items(counts)[-1]),
+                               device_ms=[])
+        _, per, _, _ = device_times(
+            torch, lambda: gk.gather_flux_chunks(*args), reps=5)
+        by_seg[seg]["device_ms"].append(kernel_ms(per, "gather_chunks_"))
+    gk.SEG = shipped
+    print(json.dumps({"gpu": nvidia_smi(), "shipped_seg": shipped,
+                      "list_max": int(counts.max()),
+                      "list_mean": float(counts.float().mean()),
+                      "by_seg": by_seg}))
 
 
 def main() -> None:
@@ -1589,4 +1800,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--sweep-seg"]:
+        sweep_seg()
+    else:
+        main()

@@ -43,9 +43,10 @@ _SIGNATURES = {
     "pt_compact_blocks": [_P, _P, _P, _P, _P, _I, _P],
     "pt_intersect_spheres": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
     "pt_intersect_tris": [_P, _I, _P, _P, _P, _P, _P, _I, _P],
-    "pt_gather_chunks": [_P, _P, _P, _I, _P, _I, _F, _P, _I, _P],
-    "pt_intersect_tile_tris": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P,
-                               _P, _P],
+    "pt_gather_chunks": [_P, _P, _P, _P, _I, _P, _I, _P, _F, _F, _I, _I,
+                         _P, _P, _I, _P],
+    "pt_intersect_tile_tris": [_P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P,
+                               _P, _P, _P, _P],
     "pt_bvh8_walk": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                      _P],
     "pt_intersect_state": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P],

@@ -24,6 +24,12 @@ sub-chunk whose bbox meets the block's hit bbox grown by r, packed as
 each sub-chunk whose mask bit is set, each photon in order, a lane adds
 (1 - d/r) * flux where d^2 < r^2 and n . n_p > 1e-3. The per-photon test is
 the exact one; the boxes only skip photons that add an exact zero.
+
+A block's list is cut into segments of SEG positions: each segment is summed
+from +0.0 into a partial, and a lane's partials are then added in segment
+order from +0.0 (block_items numbers the segments). The kernel walks the
+segments on different CTAs; the plain version sums in the same order, so
+the two stay equal. A list of at most SEG chunks sums as one run.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from .. import vec
 from . import check_tensors
 
 __all__ = ["morton3", "build_photon_chunks", "block_chunk_lists",
-           "hit_morton_keys", "gather_flux_chunks", "gather_flux_chunks_plain",
+           "block_items", "hit_morton_keys", "gather_flux_chunks",
+           "gather_flux_chunks_plain",
            "raster3", "build_photon_grid_morton", "query_tables",
            "gather_flux", "gather_flux_plain"]
 
@@ -48,6 +55,10 @@ N_SUBS = CHB // SUB
 MASK_SHIFT = 24  # list word = chunk | sub_mask << 24
 N_PLANES = 16  # photons_t planes: pos3, nrm3, flux3, pad
 _M32 = 0xFFFFFFFF
+# list positions per segment: the unit of work of the kernel's CTAs and of
+# the fixed summation order that the kernel and the plain version share
+# (8: the fastest of 4-64 on cornell's lists, chip_smoke.py --sweep-seg)
+SEG = 8
 # blocks per step of the plain version: bounds its (blocks, 1024, 128)
 # temporaries to 4 MB each
 PLAIN_BLOCKS = 8
@@ -166,12 +177,24 @@ def block_chunk_lists(point, active, sbox, radius):
             live.sum(dim=1, dtype=torch.int32))
 
 
+def block_items(counts) -> torch.Tensor:
+    """The gather's work items: item_start (nblk + 1,) int32, the exclusive
+    cumsum of ceil(count / SEG) over the blocks, so that block b owns items
+    item_start[b] .. item_start[b + 1] - 1 and its s-th item covers list
+    positions [s * SEG, min((s + 1) * SEG, count)). Computed on the counts'
+    device."""
+    per = torch.div(counts + (SEG - 1), SEG, rounding_mode="floor")
+    return torch.cat([per.new_zeros(1), torch.cumsum(per, 0)]).to(torch.int32)
+
+
 def gather_flux_chunks_plain(point, normal, active, sbox, photons_t, radius):
-    """Plain PyTorch version of gather_flux_chunks. Every lane sums its
-    photons in the kernel's order (list position, then sub-chunk, then
-    photon), vectorised over the lanes of PLAIN_BLOCKS blocks at a time; a
-    block whose list has ended or whose sub bit is clear adds nothing. That
-    takes (longest list x 128) sequential adds per step of blocks."""
+    """Plain PyTorch version of gather_flux_chunks. Every lane sums each
+    segment of SEG list positions from +0.0 in the kernel's order (list
+    position, then sub-chunk, then photon), then adds the segments' sums in
+    order from +0.0; vectorised over the lanes of PLAIN_BLOCKS blocks at a
+    time. A block whose list has ended or whose sub bit is clear adds an
+    exact +0.0. That takes (longest list x 128) sequential adds per step of
+    blocks."""
     n = point.shape[0]
     nblk = n // BLOCK
     lists, counts = block_chunk_lists(point, active, sbox, radius)
@@ -190,7 +213,10 @@ def gather_flux_chunks_plain(point, normal, active, sbox, photons_t, radius):
         x, y, z = (pts[bs, :, c, None] for c in range(3))
         nx, ny, nz = (nrms[bs, :, c, None] for c in range(3))
         a = acc[bs]
-        for k in range(int(cnt.max()) if cnt.numel() else 0):
+        n_pos = int(cnt.max()) if cnt.numel() else 0
+        for k in range(n_pos):
+            if k % SEG == 0:
+                part = torch.zeros_like(a)  # the segment's partial
             word = lists[bs, k].to(torch.int64) & _M32
             ci = word & ((1 << MASK_SHIFT) - 1)
             sub_on = (cnt > k)[:, None] & (((word >> MASK_SHIFT)[:, None]
@@ -207,7 +233,9 @@ def gather_flux_chunks_plain(point, normal, active, sbox, photons_t, radius):
                 [torch.where(on, wf * p[6 + c], 0.0) for c in range(3)], -1)
             for t in torch.nonzero(sub_on.any(dim=0)).flatten().tolist():
                 for j in range(t * SUB, (t + 1) * SUB):
-                    a = a + contrib[:, :, j]
+                    part = part + contrib[:, :, j]
+            if k % SEG == SEG - 1 or k == n_pos - 1:
+                a = a + part
         acc[bs] = a
     return torch.where(active[:, None], acc.reshape(n, 3), 0.0)
 
@@ -219,8 +247,11 @@ def gather_flux_chunks(point, normal, active, sbox, photons_t, radius):
     Returns flux (n, 3) f32; inactive lanes get zero.
 
     CPU tensors run gather_flux_chunks_plain; CUDA tensors build the chunk
-    lists in torch and launch csrc/gather_chunks.cu (counted in
-    `gather_flux_chunks.launches`); anything else raises."""
+    lists and their items in torch and launch csrc/gather_chunks.cu (its
+    two passes counted as one launch in `gather_flux_chunks.launches`);
+    anything else raises. The item count is read on the host (one
+    synchronisation per call): it sizes the grid and the (items, 3, 1024)
+    partial buffer, which no bound the host knows keeps small."""
     if point.device.type == "cpu":
         return gather_flux_chunks_plain(point, normal, active, sbox,
                                         photons_t, radius)
@@ -237,15 +268,25 @@ def gather_flux_chunks(point, normal, active, sbox, photons_t, radius):
     if not (n % BLOCK == 0 and n > 0 and n_sub % N_SUBS == 0 and n_sub > 0):
         raise ValueError(f"gather_flux_chunks: want n % {BLOCK} == 0 and "
                          f"whole chunks; got n = {n}, {n_sub} sub-chunks")
+    if photons_t.data_ptr() % 16 or sbox.data_ptr() % 16:
+        raise ValueError("gather_flux_chunks: photons_t and sbox must be "
+                         "16-byte aligned (the kernel stages them with "
+                         "16-byte copies)")
     lists, counts = block_chunk_lists(point, active, sbox, radius)
+    item_start = block_items(counts)
+    n_items = int(item_start[-1])  # the host read
     hits = torch.cat([point.T, normal.T,
                       active.to(torch.float32)[None]]).contiguous()
+    partial = torch.empty(max(n_items, 1), 3, BLOCK, dtype=torch.float32,
+                          device=point.device)
     out = torch.empty(3, n, dtype=torch.float32, device=point.device)
+    r, _, _, r_pad = _radius_f32(radius)
     lib = _build.load()
     err = lib.pt_gather_chunks(
-        hits.data_ptr(), lists.data_ptr(), counts.data_ptr(), lists.shape[1],
-        photons_t.data_ptr(), photons_t.shape[1],
-        float(_radius_f32(radius)[0]), out.data_ptr(), n,
+        hits.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+        item_start.data_ptr(), lists.shape[1], photons_t.data_ptr(),
+        photons_t.shape[1], sbox.data_ptr(), float(r), float(r_pad), SEG,
+        n_items, partial.data_ptr(), out.data_ptr(), n,
         torch.cuda.current_stream(point.device).cuda_stream)
     _build.check(lib, err, "gather_flux_chunks")
     gather_flux_chunks.launches += 1

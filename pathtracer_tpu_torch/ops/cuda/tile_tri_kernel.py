@@ -23,6 +23,11 @@ is the CSR over chunks and tile_chunk_src the column block of each chunk.
 The kernel reads directions and writes results in raster lane order
 (lane = y * width + x) over ty_n*32 rows, so the lane permutations of the
 JAX eye pass (src_lane, back) are not needed around it.
+
+The kernel walks each chunk of a tile's range on CTAs of its own and
+keeps, per ray, the first chunk's best whose t is strictly the least: the
+same first minimum as one strict-< walk over the whole list, so the plain
+version walks the list unsplit.
 """
 
 from __future__ import annotations
@@ -41,7 +46,9 @@ __all__ = ["TILE", "CHUNK", "TileTriTable", "build_tile_tri_table",
 
 _EPS = float(np.float32(1e-6))
 TILE = 32
-CHUNK = 256  # triangles per chunk: one shared-memory stage of the kernel
+# triangles per chunk: one shared-memory stage and one work item of the
+# kernel
+CHUNK = 256
 _ROWS = 10  # table rows the kernel reads: a, e1, e2, index
 
 
@@ -303,8 +310,8 @@ def intersect_tile_tris(table, tile_chunk_start, tile_chunk_src, d,
     order; t = BIG on a miss.
 
     CPU tensors run intersect_tile_tris_plain; CUDA tensors launch
-    csrc/intersect_tile_tris.cu (counted in `intersect_tile_tris.launches`);
-    anything else raises."""
+    csrc/intersect_tile_tris.cu (its two passes counted as one launch in
+    `intersect_tile_tris.launches`); anything else raises."""
     if d.device.type == "cpu":
         return intersect_tile_tris_plain(table, tile_chunk_start,
                                          tile_chunk_src, d, width)
@@ -312,16 +319,22 @@ def intersect_tile_tris(table, tile_chunk_start, tile_chunk_src, d,
         raise ValueError(f"intersect_tile_tris: no kernel for {d.device}")
     rows, tx_n, n_tiles = _check(table, tile_chunk_start, tile_chunk_src, d,
                                  width, contiguous=True)
-    n = d.shape[0]
+    if table.data_ptr() % 16:
+        raise ValueError("intersect_tile_tris: the table must be 16-byte "
+                         "aligned (the kernel stages it with 16-byte copies)")
+    n, n_chunks = d.shape[0], tile_chunk_src.shape[0]
     lib = _build.load()
+    partial = torch.empty(n_chunks, 4, TILE * TILE, dtype=torch.float32,
+                          device=d.device)
     t = torch.empty(n, dtype=torch.float32, device=d.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     idx = torch.empty(n, dtype=torch.int32, device=d.device)
     err = lib.pt_intersect_tile_tris(
         table.data_ptr(), table.shape[1], tile_chunk_start.data_ptr(),
-        tile_chunk_src.data_ptr(), n_tiles, tx_n, d.data_ptr(), width,
-        t.data_ptr(), u.data_ptr(), v.data_ptr(), idx.data_ptr(),
+        tile_chunk_src.data_ptr(), n_tiles, tx_n, n_chunks, d.data_ptr(),
+        width, partial.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(),
+        idx.data_ptr(),
         torch.cuda.current_stream(d.device).cuda_stream)
     _build.check(lib, err, "intersect_tile_tris")
     intersect_tile_tris.launches += 1

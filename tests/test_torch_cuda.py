@@ -22,10 +22,14 @@ the card is held to the same render on the CPU: photon map lengths within
 sin/cos/acos may differ by an ulp between the devices and flip a few photon
 paths.
 
+The chunk gather and the tile-culled triangle kernel split long lists over
+CTAs; their tests check that the input splits (a list longer than
+gather_kernel.SEG, a tile of more than one chunk).
+
 The mesh kernels (the BVH8 walk, the tile-culled triangle kernel) must
 equal their plain versions exactly too, on a random triangle soup with
-rays of exact-zero direction components and on a small uv-sphere with
-empty tiles. The ganesha render on the card is held to the CPU render by
+rays of exact-zero direction components and on a uv-sphere with empty
+tiles. The ganesha render on the card is held to the CPU render by
 the cornell bounds.
 
 The two-kernel bounce (intersect_state, shade_state), the clustered sphere
@@ -191,7 +195,8 @@ def test_intersect_tris_kernel_matches_plain(dev):
 
 
 def test_gather_kernel_matches_plain(dev):
-    """The gather of a real 96x96 cornell iteration, every block."""
+    """The gather of a real 96x96 cornell iteration, every block; lists of
+    up to 65 chunks, so the kernel splits them into segments of SEG."""
     scene, cam, lights = cornell.build(1.0, dev)
     trace, _, _ = ppm.make_photon_pass(scene, lights, 5000, 4)
     pos, nrm, flux, ok, _ = trace(0)
@@ -202,6 +207,8 @@ def test_gather_kernel_matches_plain(dev):
     perm = torch.argsort(gk.hit_morton_keys(pt, act), stable=True)
     args = (pt[perm].contiguous(), nm[perm].contiguous(), act[perm], sbox,
             photons_t, r)
+    _, counts = gk.block_chunk_lists(args[0], args[2], sbox, r)
+    assert int(counts.max()) > gk.SEG  # some block's list splits
     before = gk.gather_flux_chunks.launches
     got = gk.gather_flux_chunks(*args)
     assert gk.gather_flux_chunks.launches == before + 1
@@ -250,6 +257,10 @@ def test_ppm_wrappers_refuse_malformed_input(dev):
         gk.gather_flux_chunks(org, org, alive,
                               torch.zeros(6, 8, device=dev),
                               torch.zeros(16, 128, device=dev), 0.1)
+    with pytest.raises(ValueError, match="aligned"):  # photons_t off by 4 B
+        gk.gather_flux_chunks(org, org, alive, torch.zeros(6, 4, device=dev),
+                              torch.zeros(16 * 128 + 1, device=dev)[1:]
+                              .view(16, 128), 0.1)
 
 
 def _soup(dev, n=150, seed=5):
@@ -264,19 +275,19 @@ def _soup(dev, n=150, seed=5):
     return MeshBVH(verts, faces, np.zeros(12, np.float32), dev)
 
 
-def _uv_sphere(radius=45.0):
-    """A closed 12x8 uv-sphere of 168 triangles where the ganesha camera
-    looks: (vertices, faces)."""
-    us = np.linspace(0, 2 * np.pi, 12, endpoint=False)
-    vs = np.linspace(1e-3, np.pi - 1e-3, 8)
+def _uv_sphere(radius=45.0, nu=12, nv=8):
+    """A closed nu x nv uv-sphere of 2 nu (nv - 1) triangles (168 by
+    default) where the ganesha camera looks: (vertices, faces)."""
+    us = np.linspace(0, 2 * np.pi, nu, endpoint=False)
+    vs = np.linspace(1e-3, np.pi - 1e-3, nv)
     uu, vv = np.meshgrid(us, vs, indexing="ij")
     verts = np.stack([np.sin(vv) * np.cos(uu), np.cos(vv),
                       np.sin(vv) * np.sin(uu)], -1).reshape(-1, 3)
     verts = radius * verts + np.array([328.0, 60.0, 150.0])
-    faces = [[i * 8 + j, (i + 1) % 12 * 8 + j, i * 8 + j + 1]
-             for i in range(12) for j in range(7)]
-    faces += [[(i + 1) % 12 * 8 + j, (i + 1) % 12 * 8 + j + 1, i * 8 + j + 1]
-              for i in range(12) for j in range(7)]
+    faces = [[i * nv + j, (i + 1) % nu * nv + j, i * nv + j + 1]
+             for i in range(nu) for j in range(nv - 1)]
+    faces += [[(i + 1) % nu * nv + j, (i + 1) % nu * nv + j + 1,
+               i * nv + j + 1] for i in range(nu) for j in range(nv - 1)]
     return verts, np.array(faces)
 
 
@@ -312,15 +323,16 @@ def test_bvh8_walk_kernel_matches_plain(dev):
 
 
 def test_intersect_tile_tris_kernel_matches_plain(dev):
-    """A small 12x8 uv-sphere under the ganesha camera at 88x96: tiles with
-    lists, empty tiles (the shared zero chunk) and a partial last tile
+    """A 48x32 uv-sphere (2,976 triangles) under the ganesha camera at
+    88x96: tiles of up to 5 chunks, which the kernel splits one chunk per
+    work item, empty tiles (the shared zero chunk) and a partial last tile
     column."""
     from pathtracer_tpu_torch.models import ganesha
     from pathtracer_tpu_torch.ops.bvh import MeshBVH
     from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
 
     w, h = 88, 96
-    verts, faces = _uv_sphere(radius=15.0)
+    verts, faces = _uv_sphere(radius=15.0, nu=48, nv=32)
     cam = ganesha.make_camera(w / h)
     m = MeshBVH(cam.transform_points(verts), faces,
                 np.zeros(12), dev, watertight=True)
@@ -328,6 +340,7 @@ def test_intersect_tile_tris_kernel_matches_plain(dev):
                                   bvh=m, backface_cull=True)
     empty = tt.tile_chunk_src == tt.zero_chunk
     assert empty.any() and not empty.all()
+    assert np.diff(tt.tile_chunk_start).max() > 1  # a tile splits
     rng = np.random.default_rng(3)
     lane = torch.arange(w * h, device=dev)
     cx = ((lane % w).float() + torch.from_numpy(rng.random(w * h, np.float32))

@@ -3,12 +3,17 @@ per-block chunk lists and the plain chunk gather of pathtracer_tpu_torch
 (ops/cuda/gather_kernel.py) against the JAX package's
 ops/pallas/gather_kernel.py, the gather in interpret mode, on seeded numpy
 inputs (the cases of tests/test_gather_kernel.py: uniform photons, far
-outliers, hits next to the outliers, no valid photon).
+outliers, hits next to the outliers, no valid photon). The plain gather
+sums each list in segments of SEG positions and then the segments in
+order; it is held to Pallas at SEG as shipped and at SEG = 1, where every
+list of more than one chunk splits.
 
 Tolerances: the keys, the chunk tables on their valid columns, the sub-chunk
 boxes and the lists are integer or copied data and must be equal. The flux
 is held to rtol 1e-5, atol 1e-7: both sides add the same photons in the same
 order, but XLA contracts the distance and weight arithmetic into FMAs."""
+
+import functools
 
 import numpy as np
 import jax.numpy as jnp
@@ -119,22 +124,49 @@ def test_block_chunk_lists_equal(case):
         assert counts.numpy().max() > 0
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_gather_plain_matches_pallas(case):
+@functools.lru_cache(maxsize=None)
+def _pallas_gather(case):
+    """The JAX gather of one case, in interpret mode."""
+    point, normal, active, pos, nrm, flux, valid, r = _case(case)
+    w_tbl, w_sbox = jgk.build_photon_chunks(J(pos), J(nrm), J(flux),
+                                            J(valid))
+    return np.asarray(jgk.gather_flux_chunks_pallas(
+        J(point), J(normal), J(active), w_sbox, w_tbl, np.float32(r),
+        interpret=True))
+
+
+def _check_plain_gather(case):
     point, normal, active, pos, nrm, flux, valid, r = _case(case)
     tbl, sbox = gk.build_photon_chunks(T(pos), T(nrm), T(flux), T(valid))
     got = gk.gather_flux_chunks(T(point), T(normal), T(active), sbox, tbl, r)
-    w_tbl, w_sbox = jgk.build_photon_chunks(J(pos), J(nrm), J(flux),
-                                            J(valid))
-    want = np.asarray(jgk.gather_flux_chunks_pallas(
-        J(point), J(normal), J(active), w_sbox, w_tbl, np.float32(r),
-        interpret=True))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got.numpy(), _pallas_gather(case), rtol=1e-5,
+                               atol=1e-7)
     assert (got.numpy()[~active] == 0.0).all()
     if case == "no_valid_photons":
         assert (got.numpy() == 0.0).all()
     else:
         assert got.numpy().sum() > 0
+    perm = np.argsort(np.asarray(jgk.hit_morton_keys(J(point), J(active))),
+                      kind="stable")
+    _, counts = gk.block_chunk_lists(T(point[perm]), T(active[perm]), sbox, r)
+    return counts
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_gather_plain_matches_pallas(case):
+    counts = _check_plain_gather(case)
+    if case == "uniform_with_outliers":  # a list splits at the shipped SEG
+        assert int(counts.max()) > gk.SEG
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_gather_plain_split_per_position_matches_pallas(case, monkeypatch):
+    """SEG = 1: every list position is a segment of its own."""
+    monkeypatch.setattr(gk, "SEG", 1)
+    counts = _check_plain_gather(case)
+    assert int(gk.block_items(counts)[-1]) == int(counts.sum())
+    if case != "no_valid_photons":
+        assert int(counts.max()) > 1
 
 
 def test_gather_wrapper_refuses_other_devices():
