@@ -8,9 +8,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
   1. device: the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
   2. build: nvcc builds csrc/*.cu for sm_90a (timed);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, which it must equal exactly, at the shapes of the canonical render (600x300 in 32x32 tiles:
-     190 tiles, 194,560 rays), with times (median of 7 after a warm-up,
-     CUDA events); then the two-kernel bounce's intersect_state (bounce 0
+     card, which it must equal exactly, at the shapes of the canonical
+     render (600x300 in 32x32 tiles: 190 tiles, 194,560 rays): the
+     sphere hierarchy's groups and leaves and its host build ms; the fused
+     bounce at every bounce of pass 0 (compacted before bounce 3, as the
+     render does), with device times, at bounces >= 1 the sphere walk's
+     leaves and node tests per warp, pairs tested and both bounds (brute
+     force and under the walk), and the plain version's times at bounces
+     0 and 1 (median of 7 after a warm-up, CUDA events), and
+     intersect_state against its plain version on each of those states;
+     compaction; then the two-kernel bounce's intersect_state (bounce 0
      listed and origin-zero, bounce 1 full) and shade_state against their
      plain versions, and their chain against fused_bounce, all equal, with
      the host's microseconds per call of the three wrappers;
@@ -68,7 +75,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
      build seconds) and the renderer builds its tile table (columns, list
      length mean and max);
  10. mesh kernels against their plain versions, which they must equal
-     exactly: bvh8_walk on iteration 1's photon bounce-0 and bounce-1 rays
+     exactly: bvh8_walk on iteration 1's photon rays of every bounce
+     (bounces 0 and 1 timed against the plain version)
      (75,776 lanes, t_max0 the pool winner's t; the plain version over all
      lanes, which also counts each lane's steps and the table rows read);
      intersect_tile_tris on iteration 1's eye primaries (608 x 600 rays),
@@ -94,10 +102,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
      `ply-describe scenes/test_ganesha.ply` runs.
 Each kernel's bound_ms in the JSON line is the larger of the bytes it must
 move over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
-from this run's inputs (OPS below). The clustered kernel and the raster
-gather are on no render path: their counts are set to 0 with the path's
-own before each of the four main-path renders (4, 4b, 7, 11), read after
-it, and must stay 0.
+from this run's inputs (OPS below); for the full-variant sphere loop
+(fused_bounce, intersect_state) that is the walk's node tests and pairs,
+with the brute force's bound beside it as bound_ms_brute. The clustered
+kernel and the raster gather are on no render path: their counts are set
+to 0 with the path's own before each of the four main-path renders (4, 4b,
+7, 11), read after it, and must stay 0.
 Then a JSON line of kernel results, the nvidia-smi line, and the final
 `{"ok": true, "device": {...}}` line. Without a CUDA device, or without the
 package beside this script, it fails before printing any result.
@@ -172,11 +182,13 @@ FP32_OPS_PER_MS = 67e12 / 1e3
 # 20 each) and of one that missed (17), a ray-triangle test of
 # intersect_tris.cu and bvh8_walk.cu (46) and of the origin-zero
 # intersect_tile_tris.cu (44), a hit-photon pair of gather_chunks.cu and
-# gather_flux.cu (22), and a node row of bvh8_walk.cu (185: 9 for the ray's
+# gather_flux.cu (22), a node row of bvh8_walk.cu (185: 9 for the ray's
 # frame, 8 children x 3 axes x 6 slab operations, 32 for the children's
-# min/max reductions).
+# min/max reductions), and a node test of the sphere hierarchy's walk in
+# pt_bounce.cuh (17).
 OPS = dict(sphere=20, fused_sphere=18, listed_sphere=9, cull=17, shade=300,
-           shade_miss=17, tri=46, tile_tri=44, gather=22, node=185)
+           shade_miss=17, tri=46, tile_tri=44, gather=22, node=185,
+           sphere_node=17)
 # blocks the plain raster gather is held on
 RASTER_LONGEST = RASTER_SPACED = 16
 # device ms of the one-CTA-per-list kernels that the split-list kernels
@@ -187,6 +199,13 @@ RASTER_LONGEST = RASTER_SPACED = 16
 BEFORE_SPLIT_MS = dict(gather_all_blocks=8.120, gather_checked_blocks=7.840,
                        gather_cornell_iteration=6.00,
                        gather_ganesha_iteration=4.296, tile=3.109)
+# device ms of the kernels before the sphere hierarchy's walk and the
+# grouped BVH8 walk replaced their loops (PERF.md, §6; NVIDIA H100 80GB
+# HBM3, 700 W): the full fused bounce and intersect_state at shirley
+# bounce 1, the fused kernel's sum over one shirley render, and the BVH8
+# walk at ganesha photon bounce 0
+BEFORE_CULL_MS = dict(fused_bounce=0.1439, intersect_state=0.1149,
+                      fused_bounce_render=23.51, bvh8_walk=0.173)
 # list positions per gather work item tried by --sweep-seg
 SWEEP_SEGS = (4, 8, 16, 32, 64)
 # Kernel vs plain on the card: none. The kernels are built without FMA
@@ -498,7 +517,50 @@ def listed_pairs(torch, r, state):
     return int((live_blk * n_list).sum())
 
 
-def two_kernel_kernels(torch, r, fb_in, off, bg, n_sph):
+def cull_work(torch, r, hier, state, n_sph):
+    """The full-variant sphere loop's work on `state` under the per-warp
+    walk of `hier`, from its plain emulation
+    (sphere_kernel.intersect_culled_plain), which must give intersect_regs'
+    result on every live lane: per warp with a live lane, the nodes visited
+    and the leaves entered; the pairs tested (each live lane against the
+    unconditional spheres and the spheres of its warp's entered leaves)
+    beside the brute force's; the operations of both and the hierarchy's
+    bytes; and fused_bounce's bound of both (bytes: state, radiance and
+    offsets in and out, and the tables). The kernel's bound is the one
+    under the walk: the work these inputs need."""
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+
+    comps = [state[c].reshape(-1) for c in range(6)]
+    alive = state[9].reshape(-1) > 0
+    at, idx, st = sk.intersect_culled_plain(r.sph_table, hier, *comps, alive,
+                                            origin_zero=False)
+    want = sk.intersect_regs(r.sph_table, *comps, origin_zero=False)
+    require(torch.equal(at[alive], want[0][alive])
+            and torch.equal(idx[alive], want[1][alive]),
+            "the walk's plain emulation differs from intersect_regs")
+    live_w = st["live_lanes"]
+    w = live_w > 0
+    pairs = int((live_w * st["spheres_tested"]).sum())
+    node_tests = int((live_w * st["nodes_visited"]).sum())
+    n_live = int(alive.sum())
+    n_bytes = (state.shape[1] * state.shape[2] * 4 * (10 + 3 + 1 + 10 + 3)
+               + (r.sph_table.numel() + r.pack_table.numel()) * 4)
+    tree_bytes = (hier.order.numel() + hier.nodes.numel()
+                  + hier.links.numel()) * 4
+    ops_brute = n_live * n_sph * OPS["fused_sphere"]
+    ops = pairs * OPS["fused_sphere"] + node_tests * OPS["sphere_node"]
+    return dict(
+        leaves_mean=float(st["leaves_entered"][w].float().mean()),
+        leaves_max=int(st["leaves_entered"].max()),
+        nodes_mean=float(st["nodes_visited"][w].float().mean()),
+        nodes_max=int(st["nodes_visited"].max()),
+        pairs=pairs, pairs_brute=n_live * n_sph, node_tests=node_tests,
+        ops=ops, ops_brute=ops_brute, tree_bytes=tree_bytes,
+        bound_brute=bound(n_bytes, ops_brute),
+        bound_culled=bound(n_bytes + tree_bytes, ops))
+
+
+def two_kernel_kernels(torch, r, hier, fb_in, off, bg, n_sph):
     """Phase 3, second half: intersect_state and shade_state against their
     plain versions at bounce 0 (listed, origin-zero) and bounce 1 (full),
     and the chain of the two kernels against fused_bounce; all equal.
@@ -514,15 +576,18 @@ def two_kernel_kernels(torch, r, fb_in, off, bg, n_sph):
         state = fb_in[b]
         n = state.shape[1] * state.shape[2]
         kw = dict(origin_zero=b == 0,
-                  block_lists=(r.lists, r.counts) if listed else None)
+                  block_lists=(r.lists, r.counts) if listed else None,
+                  sphere_bvh=None if listed else hier)
         limbs = r.sampler.limbs(2 + 2 * b, 3 + 2 * b)
         rad0 = torch.zeros(3, *state.shape[1:], device=state.device)
         what = f"bounce{b}_{'listed' if listed else 'full'}:{n}_lanes"
+        earlier = {} if listed else {
+            "before_cull_device_ms": BEFORE_CULL_MS["intersect_state"]}
         i_res = compare(
             torch, "intersect_state",
             lambda: sk.intersect_state(r.sph_table, state, **kw),
             lambda: sk.intersect_state_plain(r.sph_table, state, **kw),
-            what, kernel="intersect_state_kernel")[:3]
+            what, kernel="intersect_state_kernel", **earlier)[:3]
         at, idx = sk.intersect_state(r.sph_table, state, **kw)
         args = (state, r.pack_table, idx, off, at, limbs, colors, rad0)
         s_res = compare(
@@ -563,10 +628,16 @@ def two_kernel_kernels(torch, r, fb_in, off, bg, n_sph):
         live = state[9] > 0
         n_live = int(live.sum())
         n_hit = int(((at < sk.BIG) & live).sum())
-        pairs = (listed_pairs(torch, r, state) * OPS["listed_sphere"]
-                 if listed else n_live * n_sph * OPS["fused_sphere"])
-        i_bound = bound(n * 4 * (7 + 2) + r.sph_table.numel() * 4
-                        + (r.lists.numel() * 4 if listed else 0), pairs)
+        i_bytes = n * 4 * (7 + 2) + r.sph_table.numel() * 4
+        if listed:
+            i_bound = bound(i_bytes + r.lists.numel() * 4,
+                            listed_pairs(torch, r, state)
+                            * OPS["listed_sphere"])
+        else:  # the work under the walk; the brute force's beside it
+            c = cull_work(torch, r, hier, state, n_sph)
+            i_bound = bound(i_bytes + c["tree_bytes"], c["ops"])
+            i_bound["bound_ms_brute"] = bound(i_bytes,
+                                              c["ops_brute"])["bound_ms"]
         s_bound = bound(n * 4 * (16 + 13) + r.pack_table.numel() * 4,
                         n_hit * OPS["shade"]
                         + (n_live - n_hit) * OPS["shade_miss"])
@@ -1118,30 +1189,51 @@ def mesh_kernel_phases(torch, np, dev):
     require(len(walk_in) == bounces
             and walk_in[0][0].shape[0] == -(-photons // 1024) * 1024,
             f"walk calls {len(walk_in)}")
-    walk_times, walk_bounds = {}, {}
-    for b in (0, 1):
+    # bounces 0 and 1 timed against the plain version, every bounce held
+    # equal to it
+    walk_times, walk_bounds, walk_dev = {}, {}, {}
+    for b in range(bounces):
         org, d, t_max0, active = walk_in[b]
         args = (mesh.table, org, d, t_max0, active, mesh.node_end,
                 mesh.stride)
-        *_, steps, visited = bw.bvh8_walk_plain(*args, count_steps=True)
+        *want, steps, visited = bw.bvh8_walk_plain(*args, count_steps=True)
         n, n_act = org.shape[0], int(active.sum())
         lane_steps = steps.sum(dim=1)[active].float()
         # bytes: the table rows read, the rays (29 B) and results (17 B)
         w_bound = bound(int(visited.sum()) * 128 + n * (29 + 17),
                         int(steps[:, 0].sum()) * OPS["node"]
                         + int(steps[:, 1].sum()) * 2 * OPS["tri"])
-        walk_times[b] = compare(
-            torch, "bvh8_walk", lambda: bw.bvh8_walk(*args),
-            lambda: bw.bvh8_walk_plain(*args),
-            f"photon_b{b}:{n}_lanes", kernel="bvh8_walk_kernel",
-            plain_reps=2, plain_batch=1, plain_prof=1, active=n_act,
-            hits=int(bw.bvh8_walk(*args)[4].sum()),
+        fields = dict(
+            active=n_act, lanes_per_ray=bw.LANES_PER_RAY,
             steps_mean=f"{float(lane_steps.mean()):.2f}",
             steps_max=int(lane_steps.max()),
             node_steps=int(steps[:, 0].sum()),
             pair_steps=int(steps[:, 1].sum()),
             rows_read=int(visited.sum()),
-            bound_ms=f"{w_bound['bound_ms']:.4f}")[:3]
+            bound_ms=f"{w_bound['bound_ms']:.4f}")
+        if b == 0:
+            fields["before_group_device_ms"] = BEFORE_CULL_MS["bvh8_walk"]
+        _, per, _, _ = device_times(torch, lambda: bw.bvh8_walk(*args),
+                                    reps=5)
+        # None where the profiler recorded no launch of the kernel
+        walk_dev[b] = (kernel_ms(per, "bvh8_walk_kernel") if any(
+            "bvh8_walk_kernel" in k for k in per) else None)
+        if b < 2:
+            walk_times[b] = compare(
+                torch, "bvh8_walk", lambda: bw.bvh8_walk(*args),
+                lambda: bw.bvh8_walk_plain(*args),
+                f"photon_b{b}:{n}_lanes", kernel="bvh8_walk_kernel",
+                plain_reps=2, plain_batch=1, plain_prof=1,
+                hits=int(bw.bvh8_walk(*args)[4].sum()), **fields)[:3]
+        else:
+            got = bw.bvh8_walk(*args)
+            torch.cuda.synchronize()
+            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            phase("bvh8_walk", shape=f"photon_b{b}:{n}_lanes", equal=exact,
+                  device_ms=device_ms_field(per, "bvh8_walk_kernel"),
+                  hits=int(got[4].sum()), **fields)
+            require(exact, f"bvh8_walk (photon bounce {b}): the kernel "
+                    "differs from its plain version")
         walk_bounds[b] = w_bound
 
     # the eye primaries of iteration 1, one band of ceil(H/32)*32 rows; the
@@ -1210,6 +1302,9 @@ def mesh_kernel_phases(torch, np, dev):
         entry("bvh8_walk", "bvh8_walk.cu", "bvh.py:892", *walk_times[0],
               **walk_bounds[0],
               shape="ganesha photon bounce-0 rays, 75776 lanes",
+              lanes_per_ray=bw.LANES_PER_RAY, device_ms=walk_dev[0],
+              device_ms_by_bounce=[walk_dev[b] and round(walk_dev[b], 4)
+                                   for b in range(bounces)],
               ms_bounce1=walk_times[1][1], plain_ms_bounce1=walk_times[1][2],
               bound_ms_bounce1=walk_bounds[1]["bound_ms"]),
         entry("intersect_tile_tris", "intersect_tile_tris.cu",
@@ -1524,10 +1619,12 @@ def main() -> None:
             == os.path.join(ROOT, "pathtracer_tpu_torch"),
             "pathtracer_tpu_torch is not the package beside this script")
     from pathtracer_tpu_torch import _build
-    from pathtracer_tpu_torch.integrator import Renderer, make_render_fn
+    from pathtracer_tpu_torch.integrator import (Renderer, _default_compact_at,
+                                                 make_render_fn)
     from pathtracer_tpu_torch.models import shirley
     from pathtracer_tpu_torch.ops.cuda import compact_kernel as ck
     from pathtracer_tpu_torch.ops.cuda import fused_bounce_kernel as fbk
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -1555,71 +1652,122 @@ def main() -> None:
     rad0 = torch.zeros(3, state0.shape[1], 128, device=dev)
     require(state0.shape == (10, 1520, 128), f"wavefront {state0.shape}")
     lists = (r.lists, r.counts)
+    # the sphere hierarchy, host work: its first build (which may build the
+    # native library) and a second one, which a render pays once per scene
+    t0 = time.perf_counter()
+    hier = r.sphere_hierarchy()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    sk.build_sphere_bvh(r.sph_table)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    n_nodes = hier.nodes.shape[0]
+    phase("sphere_bvh", spheres=int(scene.valid.sum()),
+          unconditional=hier.n_uncond, groups=hier.n_groups,
+          leaves=n_nodes - hier.n_groups,
+          first_build_ms=f"{first_ms:.3f}", build_ms=f"{build_ms:.3f}")
 
-    def bounce(fn, state, b, listed):
-        return fn(r.sph_table, state, r.pack_table, off,
-                  r.sampler.limbs(2 + 2 * b, 3 + 2 * b), colors, rad0,
+    def bounce(fn, state, off_b, b):
+        return fn(r.sph_table, state, r.pack_table, off_b,
+                  r.sampler.limbs(2 + 2 * b, 3 + 2 * b), colors,
+                  torch.zeros(3, *state.shape[1:], device=dev),
                   bg_mode=bg_mode, origin_zero=(b == 0),
-                  block_lists=lists if listed else None)
+                  block_lists=lists if b == 0 else None,
+                  sphere_bvh=None if b == 0 else hier)
 
+    # every bounce of pass 0 as the render runs it: bounce 0 listed, the
+    # rest full (the per-warp walk of the sphere hierarchy), compacted
+    # before bounce 3; each on the kernel's own state of the bounce before
+    n_sph = int(scene.valid.sum())
     fb_err = 0.0
-    fb_times = {}
-    fb_in = {}
-    state_in = state0
-    for b, listed in ((0, True), (1, False), (2, False)):
+    fb_times, fb_in, fb_cull, fb_dev = {}, {}, {}, {}
+    state_in, off_b = state0, off
+    for b in range(BOUNCES):
+        if b in _default_compact_at(BOUNCES):
+            ck_in = (state_in, off_b)
+            ck_k = ck.compact_blocks(*ck_in)
+            ck_p = ck.compact_blocks_plain(*ck_in)
+            torch.cuda.synchronize()
+            exact = (torch.equal(ck_k[0].view(torch.int32),
+                                 ck_p[0].view(torch.int32))
+                     and torch.equal(ck_k[1], ck_p[1])
+                     and torch.equal(ck_k[2], ck_p[2]))
+            ck_err = max(float((ck_k[0] - ck_p[0]).abs().max()),
+                         float((ck_k[1] - ck_p[1]).abs().max()))
+            ck_ms = time_ms(torch, lambda: ck.compact_blocks(*ck_in))
+            ck_plain_ms = time_ms(torch,
+                                  lambda: ck.compact_blocks_plain(*ck_in))
+            _, per, _, _ = device_times(
+                torch, lambda: ck.compact_blocks(*ck_in))
+            pdev, _, _, _ = device_times(
+                torch, lambda: ck.compact_blocks_plain(*ck_in))
+            phase("compact_blocks", bounce=b,
+                  live=int((state_in[9] > 0).sum()), bit_identical=exact,
+                  ms=f"{ck_ms:.4f}", plain_ms=f"{ck_plain_ms:.4f}",
+                  device_ms=f"{kernel_ms(per, 'compact_kernel'):.4f}",
+                  plain_device_ms=f"{pdev:.4f}")
+            require(exact, "compact_blocks differs from its plain version")
+            st_c, off_c, n_used = ck.pack_rows(*ck_k)
+            keep = -(-int(n_used) // 8) * 8
+            require(keep > 0, f"no live lane before bounce {b}")
+            state_in = st_c[:, :keep].contiguous()
+            off_b = off_c[:keep].contiguous()
         fb_in[b] = state_in
-        st_k, rad_k = bounce(fbk.fused_bounce, state_in, b, listed)
-        st_p, rad_p = bounce(fbk.fused_bounce_plain, state_in, b, listed)
+        st_k, rad_k = bounce(fbk.fused_bounce, state_in, off_b, b)
+        st_p, rad_p = bounce(fbk.fused_bounce_plain, state_in, off_b, b)
         torch.cuda.synchronize()
         n_diff = int(((st_k[9] > 0) != (st_p[9] > 0)).sum())
         d_state = float((st_k - st_p).abs().max())
         d_rad = float((rad_k - rad_p).abs().max())
         exact = torch.equal(st_k, st_p) and torch.equal(rad_k, rad_p)
-        live = int((st_k[9] > 0).sum())
-        kms = time_ms(torch, lambda: bounce(fbk.fused_bounce, state_in, b,
-                                            listed))
-        pms = time_ms(torch, lambda: bounce(fbk.fused_bounce_plain, state_in,
-                                            b, listed))
-        fb_times[b] = (kms, pms)
+        # intersect_state runs the same sphere loop: equal at every bounce
+        ikw = dict(origin_zero=b == 0,
+                   block_lists=lists if b == 0 else None,
+                   sphere_bvh=None if b == 0 else hier)
+        i_equal = all(torch.equal(g, w) for g, w in zip(
+            sk.intersect_state(r.sph_table, state_in, **ikw),
+            sk.intersect_state_plain(r.sph_table, state_in, **ikw)))
+        fields = {"intersect_state_equal": i_equal}
+        if b < 2:  # the plain version's times at bounces 0 and 1
+            kms = time_ms(torch, lambda: bounce(fbk.fused_bounce, state_in,
+                                                off_b, b))
+            pms = time_ms(torch, lambda: bounce(fbk.fused_bounce_plain,
+                                                state_in, off_b, b))
+            fb_times[b] = (kms, pms)
+            pdev, _, _, _ = device_times(
+                torch, lambda: bounce(fbk.fused_bounce_plain, state_in,
+                                      off_b, b))
+            fields.update(ms=f"{kms:.4f}", plain_ms=f"{pms:.4f}",
+                          plain_device_ms=f"{pdev:.4f}")
         _, per, _, _ = device_times(
-            torch, lambda: bounce(fbk.fused_bounce, state_in, b, listed))
-        pdev, _, _, _ = device_times(
-            torch, lambda: bounce(fbk.fused_bounce_plain, state_in, b, listed))
-        phase("fused_bounce", bounce=b, variant="listed" if listed else "full",
-              live_in=int((state_in[9] > 0).sum()), live_out=live,
-              alive_diff=n_diff, max_abs_state=d_state, max_abs_rad=d_rad,
-              equal=exact, ms=f"{kms:.4f}", plain_ms=f"{pms:.4f}",
-              device_ms=f"{kernel_ms(per, 'fused_bounce_kernel'):.4f}",
-              plain_device_ms=f"{pdev:.4f}")
+            torch, lambda: bounce(fbk.fused_bounce, state_in, off_b, b))
+        dev_ms = kernel_ms(per, "fused_bounce_kernel")
+        if b > 0:
+            fb_cull[b] = c = cull_work(torch, r, hier, state_in, n_sph)
+            fields.update(
+                leaves_per_warp_mean=f"{c['leaves_mean']:.2f}",
+                leaves_per_warp_max=c["leaves_max"],
+                nodes_per_warp_mean=f"{c['nodes_mean']:.2f}",
+                nodes_per_warp_max=c["nodes_max"],
+                pairs_tested=c["pairs"], pairs_brute=c["pairs_brute"],
+                bound_ms_brute=f"{c['bound_brute']['bound_ms']:.4f}",
+                bound_ms_culled=f"{c['bound_culled']['bound_ms']:.4f}")
+        if b == 1:
+            fields["before_cull_device_ms"] = BEFORE_CULL_MS["fused_bounce"]
+        phase("fused_bounce", bounce=b, variant="listed" if b == 0 else "full",
+              live_in=int((state_in[9] > 0).sum()),
+              live_out=int((st_k[9] > 0).sum()), alive_diff=n_diff,
+              max_abs_state=d_state, max_abs_rad=d_rad, equal=exact,
+              device_ms=f"{dev_ms:.4f}", **fields)
         require(exact, f"bounce {b}: the kernel differs from its plain "
                 f"version ({n_diff} alive flags, state {d_state}, "
                 f"radiance {d_rad})")
+        require(i_equal, f"bounce {b}: intersect_state differs from its "
+                "plain version")
         fb_err = max(fb_err, d_state, d_rad)
+        fb_dev[b] = dev_ms
         state_in = st_k
 
-    # compaction at bounce 3, on the wavefront the render compacts
-    ck_k = ck.compact_blocks(state_in, off)
-    ck_p = ck.compact_blocks_plain(state_in, off)
-    torch.cuda.synchronize()
-    exact = (torch.equal(ck_k[0].view(torch.int32), ck_p[0].view(torch.int32))
-             and torch.equal(ck_k[1], ck_p[1]) and torch.equal(ck_k[2],
-                                                               ck_p[2]))
-    ck_err = max(float((ck_k[0] - ck_p[0]).abs().max()),
-                 float((ck_k[1] - ck_p[1]).abs().max()))
-    ck_ms = time_ms(torch, lambda: ck.compact_blocks(state_in, off))
-    ck_plain_ms = time_ms(torch, lambda: ck.compact_blocks_plain(state_in,
-                                                                 off))
-    _, per, _, _ = device_times(torch,
-                                lambda: ck.compact_blocks(state_in, off))
-    pdev, _, _, _ = device_times(
-        torch, lambda: ck.compact_blocks_plain(state_in, off))
-    phase("compact_blocks", live=int((state_in[9] > 0).sum()),
-          bit_identical=exact, ms=f"{ck_ms:.4f}", plain_ms=f"{ck_plain_ms:.4f}",
-          device_ms=f"{kernel_ms(per, 'compact_kernel'):.4f}",
-          plain_device_ms=f"{pdev:.4f}")
-    require(exact, "compact_blocks differs from its plain version")
-    n_sph = int(scene.valid.sum())
-    two_k = two_kernel_kernels(torch, r, fb_in, off, bg, n_sph)
+    two_k = two_kernel_kernels(torch, r, hier, fb_in, off, bg, n_sph)
 
     # --- 4. main path ----------------------------------------------------
     render = make_render_fn(cam, bg, WIDTH, HEIGHT, SPP, BOUNCES, dev)
@@ -1680,6 +1828,7 @@ def main() -> None:
           device_busy_ms=f"{busy_ms:.3f}",
           device_idle_share=f"{1 - busy_ms / prof_wall_ms:.3f}",
           fused_bounce_ms=f"{kernel_ms(per, 'fused_bounce_kernel'):.3f}",
+          before_cull_fused_bounce_ms=BEFORE_CULL_MS["fused_bounce_render"],
           compact_ms=f"{kernel_ms(per, 'compact_kernel'):.3f}",
           device_ops=f"{n_ops:.0f}", kernels_seen=len(per))
 
@@ -1712,19 +1861,17 @@ def main() -> None:
     mesh_kernels, mesh_launches = mesh_phases(torch, np, dev, smi)
 
     # bounds of the PT kernels: bounce 1 (full) reads state (10 planes),
-    # radiance (3) and offsets, writes state and radiance, and tests each
-    # live ray against the valid spheres. Compaction reads every lane's
-    # alive word and the 9 payload words and offset of each live lane, and
-    # writes 10 state words and an offset per lane and a count per block.
-    st1 = fb_in[1]
-    n1 = st1.shape[1] * st1.shape[2]
-    fb_bound = bound(n1 * 4 * (10 + 3 + 1 + 10 + 3)
-                     + (r.sph_table.numel() + r.pack_table.numel()) * 4,
-                     int((st1[9] > 0).sum()) * int(scene.valid.sum())
-                     * OPS["fused_sphere"])
-    n3, live3 = off.numel(), int((state_in[9] > 0).sum())
+    # radiance (3), offsets and the hierarchy, writes state and radiance,
+    # and runs the walk's node tests and pairs (cull_work; the brute
+    # force's bound, every live ray against every valid sphere, beside it).
+    # Compaction reads every lane's alive word and the 9 payload words and
+    # offset of each live lane, and writes 10 state words and an offset per
+    # lane and a count per block.
+    fb_bound = fb_cull[1]["bound_culled"]
+    n3, live3 = ck_in[1].numel(), int((ck_in[0][9] > 0).sum())
     ck_bound = bound(n3 * 4 + live3 * 40 + n3 * 44 + n3 // 1024 * 4, 0)
     # bounce 0 (listed): each live ray against its block's list
+    n1 = fb_in[1].shape[1] * fb_in[1].shape[2]
     fb0_bound = bound(n1 * 4 * (10 + 3 + 1 + 10 + 3) + r.lists.numel() * 4
                       + (r.sph_table.numel() + r.pack_table.numel()) * 4,
                       listed_pairs(torch, r, fb_in[0]) * OPS["listed_sphere"])
@@ -1733,6 +1880,10 @@ def main() -> None:
               "pallas/fused_bounce_kernel.py:123", fb_err, *fb_times[1],
               **fb_bound, shape="shirley bounce 1 (full), 194560 lanes",
               launches=launches["fused_bounce"],
+              device_ms=fb_dev[1],
+              bound_ms_brute=fb_cull[1]["bound_brute"]["bound_ms"],
+              device_ms_by_bounce=[round(fb_dev[b], 4)
+                                   for b in range(BOUNCES)],
               ms_listed_bounce0=fb_times[0][0],
               plain_ms_listed_bounce0=fb_times[0][1],
               bound_ms_listed_bounce0=fb0_bound["bound_ms"]),

@@ -38,6 +38,7 @@ _F = ctypes.c_float
 # C entry points: (argtypes); each returns the cudaError_t of its launch
 _SIGNATURES = {
     "pt_fused_bounce": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                        _P, _I, _I, _P, _P, _I, _I,
                         _U, _U, _U, _U, _F, _F, _F, _F, _F, _F, _I, _I, _I,
                         _P],
     "pt_compact_blocks": [_P, _P, _P, _P, _P, _I, _P],
@@ -48,8 +49,9 @@ _SIGNATURES = {
     "pt_intersect_tile_tris": [_P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P,
                                _P, _P, _P, _P],
     "pt_bvh8_walk": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                     _P],
-    "pt_intersect_state": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P],
+                     _I, _P],
+    "pt_intersect_state": [_P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
+                           _I, _P, _P, _I, _I, _P],
     "pt_shade_state": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _U, _U, _U, _U,
                        _F, _F, _F, _F, _F, _F, _I, _I, _P],
     "pt_intersect_clustered": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,

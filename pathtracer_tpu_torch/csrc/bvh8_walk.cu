@@ -5,18 +5,36 @@
 // The plain PyTorch version is ops/cuda/bvh_walk_kernel.py:bvh8_walk_plain,
 // and the output equals it exactly. Table layout: ops/bvh.py.
 //
-// Design: one thread per ray, 128 threads per CTA. A thread carries the
-// walk state (ptr, lret, t, u, v, idx) in registers and loops the JAX
-// body's step until ptr reaches the done pointer, reading one 128-byte
-// table row from global memory per step (through L1/L2; the 73 MB ganesha
-// table fits the 50 MB L2 only in part). A node row tests its up to 8
-// children's quantized boxes in the row's own frame; the first hitting
+// Design: a group of G = 8 lanes per ray (the wrapper's LANES_PER_RAY,
+// passed in as `lanes_per_ray` and checked), 64 threads per CTA. Every lane
+// of a group
+// carries the same walk state (ptr, lret, t, u, v, idx) and loops the JAX
+// body's step until ptr reaches the done pointer. Each step the group reads
+// its 128-byte table row with one coalesced 16-byte load per lane into the
+// group's slot of shared memory, and each lane reads the words it needs
+// from there. A node row: lane k tests child k's quantized box in the
+// row's own frame, and
+// __ballot_sync over the group gives the hit mask bh; the first hitting
 // child at or after the phase is entered, and a leaf child records the
 // re-entry pointer (this row at phase sel+1, or the row's exit when no
-// later child hits). A triangle-pair row runs two Moller-Trumbore tests
-// and moves to the next pair or to the recorded re-entry pointer. Lanes
-// need no lockstep: a lane's result does not depend on the others, so the
-// JAX walk's coherence sort, chunking and step caps are dropped.
+// later child hits). A triangle-pair row: lanes 0 and 1 run the two
+// Moller-Trumbore tests against the old best at once, __shfl_sync hands
+// both results to the group, and each lane combines them (below). Lanes
+// need no lockstep across groups: a ray's result does not depend on the
+// others, so the JAX walk's coherence sort, chunking and step caps are
+// dropped. G lanes per ray keep G times the warps in flight of the
+// one-thread-per-ray walk (75,776 photon lanes: 592 CTAs of 128 threads,
+// ~18 warps of an SM's 64), which hides the chain of dependent row loads,
+// and a row costs one 128-byte transaction instead of ~30 scalar loads.
+//
+// The triangle pair. The sequential walk tests the first triangle against
+// the best t0, then the second against the result. Let ok_j be test j
+// accepting against t0 (the t <= best rule). If ok1, the best is tt1 <=
+// t0, and the second then accepts iff its other conditions hold and tt2 <=
+// tt1, which implies tt2 <= t0: iff ok2 && tt2 <= tt1. If !ok1 the best is
+// still t0, and the second accepts iff ok2. So the second wins iff ok2 &&
+// (!ok1 || tt2 <= tt1), a tie tt2 == tt1 included; else the first wins
+// iff ok1. An accepted tt is >= 0, never NaN.
 //
 // Numerics, kept equal to the plain version (and to the JAX walk):
 // - min and max propagate NaN (jnp.minimum / maximum, torch.minimum /
@@ -28,17 +46,19 @@
 // - sel is the first hitting child, 0 when none.
 // Built with -fmad=false and IEEE division.
 //
-// Bound on this card: the steps are dependent global loads (latency), one
-// row per step per lane; the slab tests are ~150 flops per node step.
-// Left for later PRs: a coherence sort of the rays, persistent threads,
-// and the row in shared memory or registers as 8 float4 loads.
+// Bound on this card: the steps are dependent row loads (latency), one
+// 128-byte row per step per ray; the slab tests are ~185 flops per node
+// step, spread over the group. Left for later PRs: a coherence sort of the
+// rays and persistent groups.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BLOCK = 128;
+constexpr int BLOCK = 64;  // a few rays per CTA: a CTA lasts as long as
+                           // its longest ray, so small CTAs free slots early
+constexpr int G = 8;  // lanes per ray, one child of a node row each
 constexpr float BIG = 0x1.c363ccp+127f;  // np.float32(3.0e38)
 constexpr float EPS = 0x1.0c6f7ap-20f;  // np.float32(1e-6)
 
@@ -51,12 +71,11 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 
 // One Moller-Trumbore test against the triangle at row columns
-// [c, c + 9), index at column c + 9; updates the best where it accepts.
-__device__ __forceinline__ void mt_update(const float* __restrict__ r,
-                                          const int* __restrict__ ri, int c,
-                                          const float o[3], const float d[3],
-                                          float& tb, float& ub, float& vb,
-                                          int& ib) {
+// [c, c + 9) against the best tb: whether it accepts, and its t, u, v.
+__device__ __forceinline__ bool mt_test(const float* r, int c,
+                                        const float o[3], const float d[3],
+                                        float tb, float& tt, float& uu,
+                                        float& vv) {
   const float ax = r[c], ay = r[c + 1], az = r[c + 2];
   const float e1x = r[c + 3], e1y = r[c + 4], e1z = r[c + 5];
   const float e2x = r[c + 6], e2y = r[c + 7], e2z = r[c + 8];
@@ -66,23 +85,18 @@ __device__ __forceinline__ void mt_update(const float* __restrict__ r,
   const float det = e1x * pvx + e1y * pvy + e1z * pvz;
   const float det_inv = 1.0f / det;
   const float tvx = o[0] - ax, tvy = o[1] - ay, tvz = o[2] - az;
-  const float uu = det_inv * (tvx * pvx + tvy * pvy + tvz * pvz);
+  uu = det_inv * (tvx * pvx + tvy * pvy + tvz * pvz);
   const float qvx = tvy * e1z - tvz * e1y;  // qvec = tvec x e1
   const float qvy = tvz * e1x - tvx * e1z;
   const float qvz = tvx * e1y - tvy * e1x;
-  const float vv = det_inv * (d[0] * qvx + d[1] * qvy + d[2] * qvz);
-  const float tt = det_inv * (e2x * qvx + e2y * qvy + e2z * qvz);
-  if ((fabsf(det) >= EPS) && (uu >= 0.0f) && (uu <= 1.0f) &&
-      (vv >= 0.0f) && (uu + vv <= 1.0f) && (tt >= 0.0f) && (tt <= tb)) {
-    tb = tt;
-    ub = uu;
-    vb = vv;
-    ib = ri[c + 9];
-  }
+  vv = det_inv * (d[0] * qvx + d[1] * qvy + d[2] * qvz);
+  tt = det_inv * (e2x * qvx + e2y * qvy + e2z * qvz);
+  return (fabsf(det) >= EPS) && (uu >= 0.0f) && (uu <= 1.0f) &&
+         (vv >= 0.0f) && (uu + vv <= 1.0f) && (tt >= 0.0f) && (tt <= tb);
 }
 
 __global__ void __launch_bounds__(BLOCK)
-    bvh8_walk_kernel(const float* __restrict__ table, int node_end8,
+    bvh8_walk_kernel(const float4* __restrict__ table, int node_end8,
                      int stride, int done, const float* __restrict__ org,
                      const float* __restrict__ dir,
                      const float* __restrict__ t_max0,
@@ -90,8 +104,18 @@ __global__ void __launch_bounds__(BLOCK)
                      float* __restrict__ t_out, float* __restrict__ u_out,
                      float* __restrict__ v_out, int* __restrict__ idx_out,
                      uint8_t* __restrict__ hit_out, int n) {
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
+  __shared__ float4 rows_s[BLOCK / G][8];
+  const int lane = threadIdx.x & 31;
+  const int g = lane % G;  // lane within the group: the child it tests
+  const int slot = threadIdx.x / G;
+  const int shift = lane - g;  // the group's first lane in the warp
+  const unsigned gmask = ((1u << G) - 1u) << shift;
+  const int i = blockIdx.x * (BLOCK / G) + slot;
+  if (i >= n) return;  // whole groups leave together
+  float4* row4 = rows_s[slot];
+  const float* r = reinterpret_cast<const float*>(row4);
+  const int* ri = reinterpret_cast<const int*>(row4);
+
   const float o[3] = {org[3 * i], org[3 * i + 1], org[3 * i + 2]};
   const float d[3] = {dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]};
   const float inv_d[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
@@ -102,60 +126,89 @@ __global__ void __launch_bounds__(BLOCK)
   float tb = t_lim, ub = 0.0f, vb = 0.0f;
   int ib = 0;
   while (ptr != done) {
-    const float* r = table + (size_t)(ptr >> 3) * 32;
-    const int* ri = reinterpret_cast<const int*>(r);
+    const float4* row = table + (size_t)(ptr >> 3) * 8;
+    row4[g] = __ldg(row + g);
+    __syncwarp(gmask);
     if (ptr < node_end8) {
       const int phase = ptr & 7;
       const int arity = ri[25];
       float po[3], idp[3];
+#pragma unroll
       for (int a = 0; a < 3; ++a) {
         po[a] = (o[a] - r[a]) * r[26 + a];
         idp[a] = inv_d[a] * r[3 + a];
       }
-      unsigned bh = 0;  // bit k: child k hits
-      for (int k = 0; k < 8; ++k) {
-        float tn = 0.0f, tf = 0.0f;
-        for (int a = 0; a < 3; ++a) {
-          const int b = 2 * (3 * k + a);  // byte of qlo; qhi follows
-          const uint32_t w = (uint32_t)ri[6 + (b >> 2)];
-          const float qlo = (float)((w >> (8 * (b & 3))) & 0xFFu);
-          const float qhi = (float)((w >> (8 * (b & 3) + 8)) & 0xFFu);
-          const float t0 = (qlo - po[a]) * idp[a];
-          const float t1 = (qhi - po[a]) * idp[a];
-          const float lo = nan_min(t0, t1), hi = nan_max(t0, t1);
-          tn = a ? nan_max(tn, lo) : lo;
-          tf = a ? nan_min(tf, hi) : hi;
-        }
-        if (nan_max(tn, 0.0f) <= nan_min(tf, tb) && k >= phase && k < arity)
-          bh |= 1u << k;
+      const int k = g;
+      float tn = 0.0f, tf = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int b = 2 * (3 * k + a);  // byte of qlo; qhi follows
+        const uint32_t w = (uint32_t)ri[6 + (b >> 2)];
+        const float qlo = (float)((w >> (8 * (b & 3))) & 0xFFu);
+        const float qhi = (float)((w >> (8 * (b & 3) + 8)) & 0xFFu);
+        const float t0 = (qlo - po[a]) * idp[a];
+        const float t1 = (qhi - po[a]) * idp[a];
+        const float lo = nan_min(t0, t1), hi = nan_max(t0, t1);
+        tn = a ? nan_max(tn, lo) : lo;
+        tf = a ? nan_min(tf, hi) : hi;
       }
+      const bool hits =
+          nan_max(tn, 0.0f) <= nan_min(tf, tb) && k >= phase && k < arity;
+      // bit k: child k hits
+      const unsigned bh = (__ballot_sync(gmask, hits) >> shift) & 0xFFu;
       const int skp = ri[24];
-      if (bh == 0) {
-        ptr = skp;
-        continue;
+      int nxt = skp;
+      if (bh != 0) {
+        const int sel = __ffs(bh) - 1;
+        // the 24-bit little-endian entry of child sel, logical shifts
+        const int bo = 3 * sel, c = bo >> 2, sh = (bo & 3) * 8;
+        uint32_t raw = (uint32_t)ri[18 + c] >> sh;
+        if (sh > 8) raw |= (uint32_t)ri[18 + c + 1] << (32 - sh);
+        const int e_sel = (int)(raw & 0xFFFFFFu) & ~7;
+        if (e_sel >= node_end8) {  // a leaf child: where to come back to
+          const bool beyond = (bh >> (sel + 1)) != 0;
+          lret = beyond ? (ptr & ~7) + sel + 1 : skp;
+        }
+        nxt = e_sel;
       }
-      const int sel = __ffs(bh) - 1;
-      // the 24-bit little-endian entry of child sel, logical shifts
-      const int bo = 3 * sel, c = bo >> 2, sh = (bo & 3) * 8;
-      uint32_t raw = (uint32_t)ri[18 + c] >> sh;
-      if (sh > 8) raw |= (uint32_t)ri[18 + c + 1] << (32 - sh);
-      const int e_sel = (int)(raw & 0xFFFFFFu) & ~7;
-      if (e_sel >= node_end8) {  // a leaf child: where to come back to
-        const bool beyond = (bh >> (sel + 1)) != 0;
-        lret = beyond ? (ptr & ~7) + sel + 1 : skp;
-      }
-      ptr = e_sel;
+      ptr = nxt;
     } else {
-      mt_update(r, ri, 0, o, d, tb, ub, vb, ib);
-      mt_update(r, ri, 12, o, d, tb, ub, vb, ib);
+      // lane 0 tests the first triangle, lane 1 the second, both against
+      // the old best; the group takes both results and combines them
+      float tt = 0.0f, uu = 0.0f, vv = 0.0f;
+      bool ok = false;
+      if (g < 2) ok = mt_test(r, 12 * g, o, d, tb, tt, uu, vv);
+      const int c1 = shift, c2 = shift + 1;
+      const bool ok1 = __shfl_sync(gmask, (int)ok, c1) != 0;
+      const bool ok2 = __shfl_sync(gmask, (int)ok, c2) != 0;
+      const float tt1 = __shfl_sync(gmask, tt, c1);
+      const float tt2 = __shfl_sync(gmask, tt, c2);
+      const float uu1 = __shfl_sync(gmask, uu, c1);
+      const float uu2 = __shfl_sync(gmask, uu, c2);
+      const float vv1 = __shfl_sync(gmask, vv, c1);
+      const float vv2 = __shfl_sync(gmask, vv, c2);
+      if (ok2 && (!ok1 || tt2 <= tt1)) {
+        tb = tt2;
+        ub = uu2;
+        vb = vv2;
+        ib = ri[21];
+      } else if (ok1) {
+        tb = tt1;
+        ub = uu1;
+        vb = vv1;
+        ib = ri[9];
+      }
       ptr = r[10] > 0.5f ? lret : ptr + 8;
     }
+    __syncwarp(gmask);  // every lane has read the row before the next one
   }
-  t_out[i] = tb;
-  u_out[i] = ub;
-  v_out[i] = vb;
-  idx_out[i] = ib;
-  hit_out[i] = tb < t_lim;
+  if (g == 0) {
+    t_out[i] = tb;
+    u_out[i] = ub;
+    v_out[i] = vb;
+    idx_out[i] = ib;
+    hit_out[i] = tb < t_lim;
+  }
 }
 
 }  // namespace
@@ -164,17 +217,19 @@ extern "C" {
 
 // table (rows, 32) f32; org, dir (n, 3) f32; t_max0 (n,) f32; active (n,)
 // bool; t, u, v (n,) f32, idx (n,) int32, hit (n,) bool; all device
-// pointers. node_end8 = 8 * node_end, done = 8 * (rows - 1). Returns the
-// cudaError_t of the launch.
+// pointers. node_end8 = 8 * node_end, done = 8 * (rows - 1); lanes_per_ray
+// must be 8. Returns the cudaError_t of the launch.
 int pt_bvh8_walk(const float* table, int node_end8, int stride, int done,
                  const float* org, const float* dir, const float* t_max0,
                  const uint8_t* active, float* t, float* u, float* v,
-                 int* idx, uint8_t* hit, int n, void* stream) {
+                 int* idx, uint8_t* hit, int n, int lanes_per_ray,
+                 void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  bvh8_walk_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
-                     (cudaStream_t)stream>>>(table, node_end8, stride, done,
-                                             org, dir, t_max0, active, t, u,
-                                             v, idx, hit, n);
+  if (lanes_per_ray != G) return (int)cudaErrorInvalidValue;
+  bvh8_walk_kernel<<<(n + BLOCK / G - 1) / (BLOCK / G), BLOCK, 0,
+                     (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(table), node_end8, stride, done, org,
+      dir, t_max0, active, t, u, v, idx, hit, n);
   return (int)cudaGetLastError();
 }
 

@@ -8,18 +8,19 @@
 //
 // Design: one thread per ray, as in csrc/fused_bounce.cu, whose sphere loop
 // this kernel runs (`stage_spheres` and `nearest_sphere` of
-// csrc/pt_bounce.cuh): each CTA stages the (4, S) sphere table in shared
-// memory as float4, each live lane keeps its running minimum (a*t key,
-// index) in registers and writes it once. Only the origin, direction and
+// csrc/pt_bounce.cuh: the block's list at bounce 0, the per-warp walk of
+// the sphere hierarchy at bounces >= 1): each CTA stages the sphere words
+// in shared memory as float4, each live lane keeps its running minimum
+// (a*t key, index) in registers and writes it once. Only the origin, direction and
 // alive planes of the (10, n) state are read. A dead lane writes (BIG, 0)
 // without testing a sphere: the shading half reads `at` only where the lane
 // is alive, and the JAX kernel's dead lanes of a live block hold values that
 // nothing reads.
 //
 // Bound on this card: FP32 throughput in the sphere loop at bounces >= 1
-// (18 operations a ray-sphere pair over S = 536 spheres), as in the fused
-// bounce; the 8 bytes a lane writes and the 28 it reads are small beside
-// it. Left for later PRs: the same cull as the fused kernel's.
+// (18 operations a ray-sphere pair, node tests and the pairs of the
+// entered leaves under the walk), as in the fused bounce; the 8 bytes a
+// lane writes and the 28 it reads are small beside it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,12 +32,8 @@ namespace {
 constexpr int THREADS = 256;
 
 struct Params {
-  const float* sph;  // (4, S)
-  int n_spheres;
+  SphereArgs sa;  // sphere table, block lists or hierarchy
   const float* st;  // (10, n)
-  const int* lists;  // (n / 1024, list_k), listed variant only
-  const int* counts;  // (n / 1024,)
-  int list_k;
   float* at;  // (n,)
   int* idx;  // (n,)
   int n;
@@ -44,8 +41,8 @@ struct Params {
 
 template <bool LISTED, bool ORIGIN_ZERO>
 __global__ void __launch_bounds__(THREADS) intersect_state_kernel(Params p) {
-  extern __shared__ float4 sph_s[];
-  stage_spheres(sph_s, p.sph, p.n_spheres);
+  extern __shared__ float4 smem[];
+  const SphereShared sph_s = stage_spheres<LISTED>(smem, p.sa);
 
   const int n = p.n;
   const int i = blockIdx.x * THREADS + threadIdx.x;
@@ -59,8 +56,7 @@ __global__ void __launch_bounds__(THREADS) intersect_state_kernel(Params p) {
       o[c] = p.st[c * (size_t)n + i];
       d[c] = p.st[(3 + c) * (size_t)n + i];
     }
-    nearest_sphere<LISTED, ORIGIN_ZERO>(sph_s, p.n_spheres, p.lists,
-                                        p.counts, p.list_k, i, o, d, best_at,
+    nearest_sphere<LISTED, ORIGIN_ZERO>(sph_s, p.sa, i, o, d, best_at,
                                         best_idx);
   }
   p.at[i] = best_at;
@@ -70,7 +66,7 @@ __global__ void __launch_bounds__(THREADS) intersect_state_kernel(Params p) {
 template <bool LISTED, bool ORIGIN_ZERO>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   auto kern = intersect_state_kernel<LISTED, ORIGIN_ZERO>;
-  size_t smem = sizeof(float4) * (size_t)p.n_spheres;
+  size_t smem = sphere_smem_bytes(p.sa, LISTED);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -85,14 +81,23 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// state (10, n), at (n,), idx (n,), all device pointers; lists == NULL
-// selects the brute-force variant. Returns the cudaError_t.
+// state (10, n), at (n,), idx (n,), all device pointers; lists != NULL
+// selects the listed variant, else order / nodes / links (the sphere
+// hierarchy) must be given. Returns the cudaError_t.
 int pt_intersect_state(const float* sph, int n_spheres, const float* st,
                        const int* lists, const int* counts, int list_k,
+                       const int* order, int n_order, int n_uncond,
+                       const float* nodes, const int* links, int n_nodes,
+                       int n_groups,
                        float* at, int* idx, int n, int origin_zero,
                        void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  Params p{sph, n_spheres, st, lists, counts, list_k, at, idx, n};
+  if (lists == nullptr && order == nullptr) return (int)cudaErrorInvalidValue;
+  Params p{{sph, n_spheres, lists, counts, list_k, order,
+            reinterpret_cast<const float4*>(nodes),
+            reinterpret_cast<const int4*>(links), n_order, n_uncond, n_nodes,
+            n_groups},
+           st, at, idx, n};
   cudaStream_t s = (cudaStream_t)stream;
   const int key = (lists != nullptr ? 2 : 0) | (origin_zero ? 1 : 0);
   switch (key) {

@@ -12,9 +12,9 @@
 //
 // Numerics, kept equal to the plain version (the including files are built
 // with -fmad=false and without fast math):
-//  - a negative discriminant makes sqrtf NaN, and the strict
-//    `(at < best) && (at >= 0)` update rejects it (NaN-miss); the key is a*t
-//    with the /a dropped (directions are unit); ties go to the lowest index;
+//  - a negative discriminant makes sqrtf NaN, which `at >= 0` rejects
+//    (NaN-miss); the key is a*t with the /a dropped (directions are unit);
+//    ties go to the lowest index (nearest_sphere below);
 //  - 1.0f / sqrtf(x) where the JAX code has lax.rsqrt (rsqrtf is approximate);
 //  - jnp.maximum / jnp.clip propagate NaN, hence jmax / jmin below;
 //  - float constants are the float32 values of the JAX code, as hex literals.
@@ -54,27 +54,141 @@ struct ShadeArgs {
   float bg[6];
 };
 
-// Copies the (4, S) sphere table into shared memory as float4
-// [cx, cy, cz, A], one broadcast 16-byte word per sphere test. All threads
-// of the CTA call it; it ends in a barrier.
-__device__ __forceinline__ void stage_spheres(float4* sph_s, const float* sph,
-                                              int n_spheres) {
-  for (int s = threadIdx.x; s < n_spheres; s += blockDim.x) {
-    sph_s[s] = make_float4(sph[s], sph[n_spheres + s], sph[2 * n_spheres + s],
-                           sph[3 * n_spheres + s]);
-  }
-  __syncthreads();
+// The sphere loop's inputs, as the wrappers pass them. The listed variant
+// reads the (4, S) table and its block's list; the full variant reads the
+// same table through the per-scene hierarchy of
+// ops/cuda/sphere_kernel.py:build_sphere_bvh.
+struct SphereArgs {
+  const float* sph;  // (4, S) [cx, cy, cz, A = r^2 - |c|^2]
+  int n_spheres;
+  const int* lists;  // (n / 1024, list_k), listed variant only
+  const int* counts;  // (n / 1024,)
+  int list_k;
+  const int* order;  // (n_order,) sphere indices, unconditional ones first
+  const float4* nodes;  // (n_nodes,) [Cx, Cy, Cz, RL], full variant only:
+  const int4* links;  // the n_groups groups, then the leaves [first, count]
+  int n_order, n_uncond, n_nodes, n_groups;
+};
+
+// Shared memory the staged sphere loop takes per CTA.
+inline size_t sphere_smem_bytes(const SphereArgs& a, bool listed) {
+  return listed ? sizeof(float4) * (size_t)a.n_spheres
+                : (sizeof(float4) + sizeof(int)) * (size_t)a.n_order +
+                      (sizeof(float4) + sizeof(int4)) * (size_t)a.n_nodes;
 }
 
+// The staged copy in shared memory: sph[j] is float4 [cx, cy, cz, A], one
+// broadcast 16-byte word per pair test. Listed: j is the sphere index. Full:
+// j is a position of `order`, idx[j] its sphere index, and node / link
+// hold the hierarchy.
+struct SphereShared {
+  const float4* sph;
+  const int* idx;
+  const float4* node;
+  const int4* link;
+};
+
+// Copies the sphere words (exact copies of the table's, A is never
+// recomputed) and, for the full variant, the hierarchy into shared memory.
+// All threads of the CTA call it; it ends in a barrier.
+template <bool LISTED>
+__device__ __forceinline__ SphereShared stage_spheres(float4* smem,
+                                                      const SphereArgs& a) {
+  const int ns = a.n_spheres;
+  SphereShared sh{smem, nullptr, nullptr, nullptr};
+  if (LISTED) {
+    for (int s = threadIdx.x; s < ns; s += blockDim.x) {
+      smem[s] = make_float4(a.sph[s], a.sph[ns + s], a.sph[2 * ns + s],
+                            a.sph[3 * ns + s]);
+    }
+  } else {
+    float4* node_s = smem + a.n_order;
+    int4* link_s = reinterpret_cast<int4*>(node_s + a.n_nodes);
+    int* idx_s = reinterpret_cast<int*>(link_s + a.n_nodes);
+    for (int j = threadIdx.x; j < a.n_order; j += blockDim.x) {
+      const int s = __ldg(a.order + j);
+      smem[j] = make_float4(a.sph[s], a.sph[ns + s], a.sph[2 * ns + s],
+                            a.sph[3 * ns + s]);
+      idx_s[j] = s;
+    }
+    for (int k = threadIdx.x; k < a.n_nodes; k += blockDim.x) {
+      node_s[k] = a.nodes[k];
+      link_s[k] = a.links[k];
+    }
+    sh = SphereShared{smem, idx_s, node_s, link_s};
+  }
+  __syncthreads();
+  return sh;
+}
+
+// The cull's margin and its lanes' limits, and the most leaves a group holds
+// (ops/cuda/sphere_kernel.py: CULL_SLOPE, DIR_TOL, ORG_Q_MAX,
+// GROUP_LEAVES).
+constexpr float CULL_SLOPE = 0x1p-7f;
+constexpr float DIR_TOL = 0x1p-17f;
+constexpr float ORG_Q_MAX = 0x1p100f;
+constexpr int GROUP_LEAVES = 4;
+constexpr int GROUP_BATCH = 8;  // group tests issued before their votes
+
 // Nearest sphere of lane i's ray (o, d): the a*t key and the index, (BIG, 0)
-// on a miss. LISTED: the lane tests only its 1024-ray block's list
-// lists[i / 1024, :counts[i / 1024]] (global indices, ascending); else all
-// n_spheres. ORIGIN_ZERO: the ray starts at the origin (bounce 0).
+// on a miss. ORIGIN_ZERO: the ray starts at the origin (bounce 0).
+//
+// The pair test. With g = A + 2 c.o - |o|^2 and bp = c.d - o.d, the key is
+// at = bp + sq if g >= 0 and bp >= 0, else bp - sq, sq = sqrtf(g + bp^2),
+// and a pair is taken when at >= 0 (NaN never is). Early reject: a pair
+// with !(bp >= 0) or !(disc >= 0) skips the sqrt and the select, which
+// changes no bit. If bp < 0, inside_pos is false and at = bp - sq, which
+// is NaN or at most bp < 0 (rounding is monotone); if disc < 0 or NaN, sq
+// and so at are NaN; either way `at >= 0` fails. bp = -0.0 passes
+// bp >= 0, so it is tested (at = -0.0 - 0.0 = -0.0 is taken when disc is
+// 0). After the reject bp >= 0 holds, so inside_pos is g >= 0.
+//
+// LISTED: the lane tests its 1024-ray block's list
+// lists[i / 1024, :counts[i / 1024]] (global indices, ascending) with the
+// strict `<` of an ascending scan: ties go to the lowest index.
+//
+// Full: the warp walks the two-level hierarchy. The unconditional spheres
+// come first. Then every lane present runs the conservative test below on
+// GROUP_BATCH groups at once (independent tests, so their latencies
+// overlap), and the warp enters a group if any of them may hit under it
+// (__any_sync over __activemask(): dead lanes have left, and a lane may
+// test spheres its own test would skip, which is harmless). In an entered
+// group the lanes test its leaves at once, and the warp tests the spheres
+// of each leaf that any lane may hit. Since the visit order is not the
+// index order, a pair is taken by the (key, index) rule
+// `at >= 0 && (at < best || (at == best && s < best_idx))` from (BIG, 0):
+// the lexicographic minimum over the pairs tested, which is the strict-`<`
+// ascending scan over all S spheres (the plain version's torch.min: first
+// index among equal minima, (BIG, 0) on a miss) as long as no skipped
+// pair would have been taken. Each sphere sits in one leaf or in the
+// unconditional set, so no pair is tested twice.
+//
+// Why no skipped pair would have been taken. Let u = 2^-24, m =
+// CULL_SLOPE = 2^-7 (m^2 = 1024 u), L = |c| + r + |o| with r^2 = A + |c|^2
+// the radius the float A implies, and |d|^2 = 1 + delta. Round-off bounds
+// of the float pair test (every product and sum rounded, -fmad=false):
+// bp within 4.1 u L and disc within 21 u L^2 of their exact values, and
+// the exact disc is r^2 - p^2 + delta (w.d/|d|)^2, p the distance from c
+// to the ray's line and w = c - o. So a taken pair has p^2 <= r^2 +
+// (21 u + |delta|) L^2 and bp >= -4.1 u L. A node's (a group's or a
+// leaf's) bound (C, R) holds each sphere under it (|c - C| + r <= R, so
+// L <= L_C = |C| + R + |o|),
+// and its float test is within (16 u + |delta|) L_C^2 of the exact
+// p_C^2 = |C - o|^2 - (w_C.d)^2 / |d|^2. The lane skips the node only if
+// q - b^2 > lim^2 or b < -lim, with lim = RL + m |o| >= (R + m L_C)
+// (1 - 3.6 u) (RL = R + m (|C| + R) rounded up on the host). A taken pair
+// under it gives p_C <= R + sqrt(21 u + |delta|) L_C, and with |delta| <=
+// DIR_TOL + 4 u = 132 u, 1024 u - (21 + 16) u - 2 |delta| leaves 723 u of
+// m^2 to spare, so the node passes both compares. Lanes the bounds do not
+// cover enter every node: |a2 - 1| > DIR_TOL, |o|^2 >= ORG_Q_MAX, or NaN.
+// The host puts spheres that are not finite or lie past 2^50, and those
+// larger than the rest of the scene (shirley's ground, r = 1000, whose g
+// cancels ~1e6 against ~1e6), in the unconditional set; pads (A = -BIG,
+// |c| < 2^50) can never be taken by a covered lane and are in no leaf.
 template <bool LISTED, bool ORIGIN_ZERO>
 __device__ __forceinline__ void nearest_sphere(
-    const float4* sph_s, int n_spheres, const int* lists, const int* counts,
-    int list_k, int i, const float o[3], const float d[3], float& best_at,
-    int& best_idx) {
+    const SphereShared& sh, const SphereArgs& a, int i, const float o[3],
+    const float d[3], float& best_at, int& best_idx) {
   const float o0 = o[0], o1 = o[1], o2 = o[2];
   const float d0 = d[0], d1 = d[1], d2 = d[2];
   float od = 0.0f, oq = 0.0f;
@@ -84,8 +198,7 @@ __device__ __forceinline__ void nearest_sphere(
   }
   best_at = BIG;
   best_idx = 0;
-  auto test = [&](int s) {
-    const float4 sp = sph_s[s];
+  auto test = [&](const float4 sp, int s) {
     float bp, g;
     if (ORIGIN_ZERO) {
       bp = sp.x * d0 + sp.y * d1 + sp.z * d2;
@@ -94,23 +207,75 @@ __device__ __forceinline__ void nearest_sphere(
       bp = sp.x * d0 + sp.y * d1 + sp.z * d2 - od;
       g = sp.w + 2.0f * (sp.x * o0 + sp.y * o1 + sp.z * o2) - oq;
     }
-    float disc = g + bp * bp;
-    float sq = sqrtf(disc);  // NaN when disc < 0: both compares fail
-    bool inside_pos = (g >= 0.0f) && (bp >= 0.0f);
-    float at = bp + (inside_pos ? sq : -sq);
-    if ((at < best_at) && (at >= 0.0f)) {
+    const float disc = g + bp * bp;
+    if (!(bp >= 0.0f) || !(disc >= 0.0f)) return;  // early reject
+    const float sq = sqrtf(disc);
+    const float at = bp + ((g >= 0.0f) ? sq : -sq);
+    const bool take =
+        LISTED ? (at < best_at) && (at >= 0.0f)
+               : (at >= 0.0f) &&
+                     (at < best_at || (at == best_at && s < best_idx));
+    if (take) {
       best_at = at;
       best_idx = s;
     }
   };
   if (LISTED) {
     const int blk = i / RAY_BLOCK;
-    const int cnt = min(__ldg(counts + blk), list_k);
-    const int* lst = lists + (size_t)blk * list_k;
-    for (int j = 0; j < cnt; ++j) test(__ldg(lst + j));
-  } else {
-#pragma unroll 8
-    for (int s = 0; s < n_spheres; ++s) test(s);
+    const int cnt = min(__ldg(a.counts + blk), a.list_k);
+    const int* lst = a.lists + (size_t)blk * a.list_k;
+    for (int j = 0; j < cnt; ++j) {
+      const int s = __ldg(lst + j);
+      test(sh.sph[s], s);
+    }
+    return;
+  }
+  const unsigned mask = __activemask();
+  const float a2 = d0 * d0 + d1 * d1 + d2 * d2;
+  const bool every = !(fabsf(a2 - 1.0f) <= DIR_TOL) || !(oq <= ORG_Q_MAX);
+  const float mon = ORIGIN_ZERO ? 0.0f : CULL_SLOPE * sqrtf(oq);
+  // whether the lane may hit a sphere under node k
+  auto may_hit = [&](int k) {
+    const float4 nb = sh.node[k];
+    const float w0 = ORIGIN_ZERO ? nb.x : nb.x - o0;
+    const float w1 = ORIGIN_ZERO ? nb.y : nb.y - o1;
+    const float w2 = ORIGIN_ZERO ? nb.z : nb.z - o2;
+    const float b = w0 * d0 + w1 * d1 + w2 * d2;
+    const float q = w0 * w0 + w1 * w1 + w2 * w2;
+    const float lim = nb.w + mon;
+    return every | (!(q - b * b > lim * lim) & !(b < -lim));
+  };
+  for (int j = 0; j < a.n_uncond; ++j) test(sh.sph[j], sh.idx[j]);
+  for (int g0 = 0; g0 < a.n_groups; g0 += GROUP_BATCH) {
+    unsigned mine = 0;  // bit u: this lane may hit under group g0 + u
+#pragma unroll
+    for (int u = 0; u < GROUP_BATCH; ++u) {
+      const int g = min(g0 + u, a.n_groups - 1);
+      mine |= (unsigned)(may_hit(g) & (g0 + u < a.n_groups)) << u;
+    }
+    unsigned groups = 0;  // bit u: the warp enters group g0 + u
+#pragma unroll
+    for (int u = 0; u < GROUP_BATCH; ++u)
+      groups |= (unsigned)__any_sync(mask, (mine >> u) & 1u) << u;
+    while (groups != 0) {
+      const int4 gl = sh.link[g0 + __ffs(groups) - 1];
+      groups &= groups - 1;
+      unsigned lmine = 0;
+#pragma unroll
+      for (int v = 0; v < GROUP_LEAVES; ++v) {
+        const int leaf = gl.x + min(v, gl.y - 1);
+        lmine |= (unsigned)(may_hit(leaf) & (v < gl.y)) << v;
+      }
+      unsigned leaves = 0;
+#pragma unroll
+      for (int v = 0; v < GROUP_LEAVES; ++v)
+        leaves |= (unsigned)__any_sync(mask, (lmine >> v) & 1u) << v;
+      while (leaves != 0) {
+        const int4 ll = sh.link[gl.x + __ffs(leaves) - 1];
+        leaves &= leaves - 1;
+        for (int j = ll.x; j < ll.x + ll.y; ++j) test(sh.sph[j], sh.idx[j]);
+      }
+    }
   }
 }
 

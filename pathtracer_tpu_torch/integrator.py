@@ -41,9 +41,9 @@ from .ops import vec
 from .ops.cuda import compact_kernel as ck
 from .ops.cuda import fused_bounce_kernel as fbk
 from .ops.cuda.shade_kernel import pack_material_tables, shade_state
-from .ops.cuda.sphere_kernel import (BIG, LANES, LIST_UNROLL,
-                                     intersect_spheres, intersect_state,
-                                     pack_spheres)
+from .ops.cuda.sphere_kernel import (BIG, LANES, LIST_UNROLL, SphereBVH,
+                                     build_sphere_bvh, intersect_spheres,
+                                     intersect_state, pack_spheres)
 from .ops.cuda.tri_kernel import intersect_tris, pack_tris
 from .ops.frustum import tile_frustum_planes
 from .ops.lds import M32, Sampler
@@ -247,23 +247,27 @@ def _to_orig(rad: torch.Tensor, chain) -> torch.Tensor:
 
 
 def _two_kernel_bounce(sph_table, state, pack_table, off, limbs, bg, rad, *,
-                       bg_mode: int, origin_zero: bool, block_lists=None):
+                       bg_mode: int, origin_zero: bool, block_lists=None,
+                       sphere_bvh=None):
     """One bounce as intersect_state, then shade_state: fused_bounce's
     contract in two kernels."""
     at, idx = intersect_state(sph_table, state, origin_zero=origin_zero,
-                              block_lists=block_lists)
+                              block_lists=block_lists, sphere_bvh=sphere_bvh)
     return shade_state(state, pack_table, idx, off, at, limbs, bg, rad,
                        bg_mode=bg_mode)
 
 
 def trace_wavefront(sph_table, pack_table, state, off, sampler: Sampler,
                     max_bounces: int, background, *, origin_zero: bool,
-                    block_lists0=None, fuse_bounce: bool = True):
+                    block_lists0=None, sphere_bvh=None,
+                    fuse_bounce: bool = True):
     """Trace the wavefront to completion (the JAX _trace_pallas2).
 
     sph_table (4, S); pack_table (10, Sq, 128); state (10, rows, 128);
     off (rows, 128) int32; background (bg_mode, colors); block_lists0:
-    bounce-0 per-block sphere lists (tile-major rays only); fuse_bounce:
+    bounce-0 per-block sphere lists (tile-major rays only); sphere_bvh:
+    build_sphere_bvh of sph_table, which the kernels walk at the bounces
+    that have no lists (the plain versions do not read it); fuse_bounce:
     each bounce is one fused_bounce (True) or intersect_state then
     shade_state (False, the parity path of the module docstring).
     Returns (radiance (3, rows, 128) in the input lane order, segments
@@ -297,7 +301,8 @@ def trace_wavefront(sph_table, pack_table, state, off, sampler: Sampler,
             sph_table, state, pack_table, off,
             sampler.limbs(2 + 2 * bounce, 3 + 2 * bounce), bg, rad,
             bg_mode=bg_mode, origin_zero=origin_zero and bounce == 0,
-            block_lists=block_lists0 if bounce == 0 else None)
+            block_lists=block_lists0 if bounce == 0 else None,
+            sphere_bvh=sphere_bvh)
     flush += _to_orig(rad, chain)
     return flush.reshape(3, rows, LANES), segments
 
@@ -307,14 +312,18 @@ class Renderer(torch.nn.Module):
     loop, the kernel wavefront, film reconstruction. The scene tables, the
     tile-major ray order and the filter are buffers, so `.to(device)` moves
     them. fuse_bounce: one fused kernel per bounce (True) or the two-kernel
-    parity path (False). forward(progress=None) -> (image (H, W, 3) f32 on the
-    device, segments traced, int)."""
+    parity path (False). sphere_bvh: build_sphere_bvh of the scene's sphere
+    table, or None to build it at the first pass on the card
+    (sphere_hierarchy). forward(progress=None) -> (image (H, W, 3) f32 on
+    the device, segments traced, int)."""
 
     def __init__(self, scene: Scene, camera: Camera, background, width: int,
                  height: int, spp: int, max_bounces: int, device,
-                 fuse_bounce: bool = True):
+                 fuse_bounce: bool = True,
+                 sphere_bvh: SphereBVH | None = None):
         super().__init__()
         self.fuse_bounce = fuse_bounce
+        self._sphere_bvh = sphere_bvh
         self.camera = camera
         self.background = background
         self.width, self.height = width, height
@@ -351,6 +360,15 @@ class Renderer(torch.nn.Module):
         buf("kern2d", film.binomial_kernel_2d(order=5, pixel_radius=1)
             .astype(np.float32))
 
+    def sphere_hierarchy(self) -> SphereBVH | None:
+        """The sphere hierarchy that the kernels walk at bounces >= 1: the
+        one given to the constructor, else build_sphere_bvh of sph_table
+        (host work), built at the first call on the card and kept. None on
+        the CPU, where the plain versions do not read it."""
+        if self._sphere_bvh is None and self.sph_table.is_cuda:
+            self._sphere_bvh = build_sphere_bvh(self.sph_table)
+        return self._sphere_bvh
+
     def initial_wavefront(self, pass_idx: int):
         """Bounce-0 (state, off) of one pass in tile-major order."""
         offset = (self.pix + pass_idx * self.spp) & M32
@@ -369,6 +387,7 @@ class Renderer(torch.nn.Module):
                                self.sampler, self.max_bounces,
                                self.background, origin_zero=True,
                                block_lists0=(self.lists, self.counts),
+                               sphere_bvh=self.sphere_hierarchy(),
                                fuse_bounce=self.fuse_bounce)
 
     def untile(self, planes: torch.Tensor) -> torch.Tensor:
@@ -403,10 +422,17 @@ def make_render_fn(camera: Camera, background, width: int, height: int,
     count after each pass (the CLI's progress bar). fuse_bounce=False
     renders with the two-kernel bounce, to the same image: a parity path,
     not a tuning option. The kernels'
-    wrappers run their plain PyTorch versions when `device` is the CPU."""
+    wrappers run their plain PyTorch versions when `device` is the CPU.
+    The sphere hierarchy is built at the first render of a scene object
+    and reused while the same object is rendered again."""
+    last = [None, None]  # the scene last rendered and its sphere hierarchy
 
     def render(scene: Scene, progress=None):
-        return Renderer(scene, camera, background, width, height, spp,
-                        max_bounces, device, fuse_bounce)(progress)
+        r = Renderer(scene, camera, background, width, height, spp,
+                     max_bounces, device, fuse_bounce,
+                     sphere_bvh=last[1] if last[0] is scene else None)
+        out = r(progress)
+        last[:] = scene, r.sphere_hierarchy()
+        return out
 
     return render

@@ -31,6 +31,8 @@ from .sphere_kernel import BIG
 
 __all__ = ["bvh8_walk", "bvh8_walk_plain"]
 
+# lanes of the kernel per ray, one child of a node row each
+LANES_PER_RAY = 8
 _EPS = float(np.float32(1e-6))
 _SHIFTS = (0, 8, 16, 24)
 
@@ -196,13 +198,17 @@ def bvh8_walk(table, org, d, t_max0, active, node_end: int, stride: int):
     rows. Returns (t, u, v, idx int32, hit), each (N,).
 
     CPU tensors run bvh8_walk_plain; CUDA tensors launch csrc/bvh8_walk.cu
-    (counted in `bvh8_walk.launches`); anything else raises."""
+    with LANES_PER_RAY lanes per ray (counted in `bvh8_walk.launches`);
+    anything else raises."""
     if org.device.type == "cpu":
         return bvh8_walk_plain(table, org, d, t_max0, active, node_end,
                                stride)
     if org.device.type != "cuda":
         raise ValueError(f"bvh8_walk: no kernel for {org.device}")
     _check(table, org, d, t_max0, active, contiguous=True)
+    if table.data_ptr() % 16:
+        raise ValueError("bvh8_walk: table must be 16-byte aligned (the "
+                         "kernel reads its rows as float4)")
     n = org.shape[0]
     lib = _build.load()
     t = torch.empty(n, dtype=torch.float32, device=org.device)
@@ -214,7 +220,8 @@ def bvh8_walk(table, org, d, t_max0, active, node_end: int, stride: int):
         table.data_ptr(), 8 * node_end, stride, 8 * (table.shape[0] - 1),
         org.data_ptr(), d.data_ptr(), t_max0.data_ptr(), active.data_ptr(),
         t.data_ptr(), u.data_ptr(), v.data_ptr(), idx.data_ptr(),
-        hit.data_ptr(), n, torch.cuda.current_stream(org.device).cuda_stream)
+        hit.data_ptr(), n, LANES_PER_RAY,
+        torch.cuda.current_stream(org.device).cuda_stream)
     _build.check(lib, err, "bvh8_walk")
     bvh8_walk.launches += 1
     return t, u, v, idx, hit

@@ -12,7 +12,10 @@ attn3, alive]; off (rows, 128) int32 LDS offsets (uint32 bit patterns); rad
 (3, rows, 128) f32 radiance accumulator; rows a multiple of 8, so the flat
 ray index i belongs to 1024-ray block i // 1024. block_lists = (lists
 (n_blk, K) int32, counts (n_blk, 1) int32) gives each block its ascending
-frustum-culled sphere list (bounce 0 in tile-major ray order).
+frustum-culled sphere list (bounce 0 in tile-major ray order); without
+them the kernel walks sphere_bvh, the per-scene hierarchy of
+sphere_kernel.build_sphere_bvh, which it then needs (the plain version
+does not read it).
 """
 
 from __future__ import annotations
@@ -24,13 +27,14 @@ from ... import _build
 from . import check_tensors
 from .shade_kernel import PK_PLANES, shade_state_plain
 from .sphere_kernel import (LANES, RAY_BLOCK, check_state,
-                            intersect_state_plain)
+                            intersect_state_plain, tree_args)
 
 __all__ = ["fused_bounce", "fused_bounce_plain"]
 
 
 def fused_bounce_plain(sph_table, state, pack_table, off, limbs, bg, rad, *,
-                       bg_mode: int, origin_zero: bool, block_lists=None):
+                       bg_mode: int, origin_zero: bool, block_lists=None,
+                       sphere_bvh=None):
     """Plain PyTorch version of the fused bounce. Returns (state, rad)."""
     at, idx = intersect_state_plain(sph_table, state, origin_zero=origin_zero,
                                     block_lists=block_lists)
@@ -39,7 +43,8 @@ def fused_bounce_plain(sph_table, state, pack_table, off, limbs, bg, rad, *,
 
 
 def fused_bounce(sph_table, state, pack_table, off, limbs, bg, rad, *,
-                 bg_mode: int, origin_zero: bool, block_lists=None):
+                 bg_mode: int, origin_zero: bool, block_lists=None,
+                 sphere_bvh=None):
     """One bounce over the wavefront; returns new (state, rad) tensors.
 
     CPU tensors run fused_bounce_plain; CUDA tensors launch the kernel (and
@@ -68,6 +73,8 @@ def fused_bounce(sph_table, state, pack_table, off, limbs, bg, rad, *,
     if pack_table.shape[1] * LANES < n_spheres:
         raise ValueError("fused_bounce: pack_table holds fewer entries than "
                          "sph_table")
+    tree = tree_args("fused_bounce", sphere_bvh, state.device, n_spheres,
+                     lists is not None)
     limbs = np.asarray(limbs, np.uint32)
     (w0, w1, w2), (s0, s1, s2) = bg
 
@@ -79,7 +86,7 @@ def fused_bounce(sph_table, state, pack_table, off, limbs, bg, rad, *,
         sph_table.data_ptr(), n_spheres, pack_table.data_ptr(),
         pack_table.shape[1] * LANES, state.data_ptr(), state_out.data_ptr(),
         off.data_ptr(), rad.data_ptr(), rad_out.data_ptr(), ptr(lists),
-        ptr(counts), 0 if lists is None else lists.shape[1],
+        ptr(counts), 0 if lists is None else lists.shape[1], *tree,
         int(limbs[0, 0]), int(limbs[0, 1]), int(limbs[1, 0]),
         int(limbs[1, 1]), w0, w1, w2, s0, s1, s2, n, int(bg_mode),
         int(bool(origin_zero)),

@@ -24,6 +24,8 @@ Selection semantics of the path tracer's loops, kept exactly:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -133,6 +135,275 @@ def intersect_regs_listed(sph_table, lists, counts, o0, o1, o2, d0, d1, d2,
     return best_at, best_idx
 
 
+# The sphere hierarchy of the full-variant bounce (csrc/pt_bounce.cuh).
+SPHERE_LEAF = 8  # most spheres a leaf holds
+GROUP_LEAVES = 4  # most leaves a group holds
+WARP = 32  # lanes whose cull tests one any-lane vote decides
+# a node's bound grows by CULL_SLOPE * (|C| + R + |o|), |o| the ray origin's
+# length (the proof is in csrc/pt_bounce.cuh); a lane whose |d|^2 lies
+# outside 1 +- DIR_TOL, or whose |o|^2 is not under ORG_Q_MAX (NaN
+# included), enters every node; a sphere with |c| + r not under FAR is
+# unconditional
+CULL_SLOPE = 2.0 ** -7
+DIR_TOL = 2.0 ** -17
+ORG_Q_MAX = 2.0 ** 100
+FAR = 2.0 ** 50
+
+
+class SphereBVH(NamedTuple):
+    """A per-scene two-level hierarchy over the (4, S) sphere table, for
+    the cull of the full-variant bounce: groups of at most GROUP_LEAVES
+    leaves, leaves of at most SPHERE_LEAF spheres, both in the depth-first
+    order of a binned-SAH tree. order (U + P,) int32: sphere indices, the U
+    unconditional spheres first, then each leaf's run; nodes (G + L, 4) f32
+    [Cx, Cy, Cz, RL], the G groups then the L leaves: the bound's centre
+    and its grown radius R + CULL_SLOPE * (|C| + R), rounded up; links
+    (G + L, 4) int32 [first, count, 0, 0]: a group's leaves are nodes
+    [first, first + count), a leaf's run is order[first:first + count]."""
+    order: torch.Tensor
+    nodes: torch.Tensor
+    links: torch.Tensor
+    n_uncond: int
+    n_groups: int
+
+
+def _sphere_radii(sph_table):
+    """Centres (S, 3) f64, the radius sqrt(A + |c|^2) that the pair test's
+    A implies, in f64, and the pads: A = -BIG and |c| under FAR, which no
+    lane that the cull serves can hit (disc = A + ... stays negative)."""
+    t = sph_table.detach().cpu().numpy().astype(np.float64)
+    c = np.ascontiguousarray(t[:3].T)
+    with np.errstate(invalid="ignore"):
+        pad = (t[3] <= -0.5 * BIG) & (np.linalg.norm(c, axis=1) < FAR)
+        r = np.sqrt(np.maximum(t[3] + (c * c).sum(1), 0.0))
+    return c, r, pad
+
+
+def _bound(c, r):
+    """The bound of spheres (c, r): centre C (f32 values) and radius R =
+    max |c - C| + r in f64."""
+    cen = (0.5 * ((c - r[:, None]).min(0) + (c + r[:, None]).max(0)))
+    cen = cen.astype(np.float32).astype(np.float64)
+    return cen, float((np.linalg.norm(c - cen, axis=1) + r).max())
+
+
+def _round_up_f32(x: float) -> np.float32:
+    y = np.float32(x)
+    return np.nextafter(y, np.float32(np.inf)) if float(y) < x else y
+
+
+def _grown(c, r, spheres):
+    """[Cx, Cy, Cz, RL] of the bound of `spheres`: R grown by CULL_SLOPE *
+    (|C| + R) and rounded up to float32."""
+    cen, rad = _bound(c[spheres], r[spheres])
+    return list(cen) + [_round_up_f32(
+        rad + CULL_SLOPE * (float(np.linalg.norm(cen)) + rad))]
+
+
+def build_sphere_bvh(sph_table) -> SphereBVH:
+    """The hierarchy of the full-variant cull, on the host, on the device
+    of sph_table. Valid spheres larger than half the diagonal of the box of
+    all the others (shirley's ground) are unconditional: the cull cannot
+    bound them, since their pair test cancels ~r^2 against ~r^2; so are
+    entries that are not finite or lie past FAR. The rest go into
+    native.bvh_build's binned-SAH tree (as pack_spheres_clustered
+    builds it), whose subtrees of at most SPHERE_LEAF spheres become
+    leaves, and whose subtrees of at most GROUP_LEAVES of those leaves
+    become groups: every sphere but the pads is in exactly one leaf or
+    unconditional."""
+    c, r, pad = _sphere_radii(sph_table)
+    with np.errstate(invalid="ignore"):
+        near = np.linalg.norm(c, axis=1) + r < FAR  # False for NaN
+    uncond = [int(s) for s in np.nonzero(~pad & ~near)[0]]
+    idx = np.nonzero(~pad & near)[0]
+    for s in idx[np.argsort(-r[idx], kind="stable")]:
+        rest = np.setdiff1d(idx, uncond + [s])
+        if len(rest) == 0:
+            break
+        lo = (c[rest] - r[rest, None]).min(0)
+        hi = (c[rest] + r[rest, None]).max(0)
+        if not r[s] > 0.5 * np.linalg.norm(hi - lo):
+            break
+        uncond.append(int(s))
+    prims = np.setdiff1d(idx, uncond)
+    groups = []  # per group, its leaves' sphere indices
+    if len(prims):
+        lo = (c[prims] - r[prims, None]).astype(np.float32)
+        hi = (c[prims] + r[prims, None]).astype(np.float32)
+        _, _, meta, perm, _, _ = native.bvh_build(
+            lo, hi, length_cutoff=SPHERE_LEAF, num_bins=16)
+
+        def children(k):
+            ch = k + 1
+            while ch < meta[k, 2]:
+                yield ch
+                ch = meta[ch, 2]
+
+        def leaves(k):  # subtrees of at most SPHERE_LEAF spheres
+            _, count, skip = meta[k]
+            sub = meta[k:skip]
+            sub = sub[sub[:, 1] > 0]  # their runs are contiguous
+            if count or sub[:, 1].sum() <= SPHERE_LEAF:
+                run = perm[sub[0, 0]:sub[-1, 0] + sub[-1, 1]]
+                return [np.sort(prims[run])]
+            return [lf for ch in children(k) for lf in leaves(ch)]
+
+        def grouped(k):  # subtrees of at most GROUP_LEAVES leaves
+            lv = leaves(k)
+            if len(lv) <= GROUP_LEAVES:
+                return [lv]
+            return [g for ch in children(k) for g in grouped(ch)]
+
+        groups = grouped(0)
+    order = [np.array(sorted(uncond), np.int64)]
+    g_nodes, l_nodes, g_links, l_links = [], [], [], []
+    pos = len(order[0])
+    for lv in groups:
+        g_links.append([len(groups) + len(l_nodes), len(lv), 0, 0])
+        g_nodes.append(_grown(c, r, np.concatenate(lv)))
+        for spheres in lv:
+            l_links.append([pos, len(spheres), 0, 0])
+            l_nodes.append(_grown(c, r, spheres))
+            order.append(spheres)
+            pos += len(spheres)
+    dev = sph_table.device
+    return SphereBVH(
+        torch.from_numpy(np.concatenate(order).astype(np.int32)).to(dev),
+        torch.tensor(np.array(g_nodes + l_nodes, np.float32)
+                     .reshape(-1, 4)).to(dev),
+        torch.tensor(np.array(g_links + l_links, np.int32)
+                     .reshape(-1, 4)).to(dev),
+        len(uncond), len(groups))
+
+
+def cull_lanes(hier: SphereBVH, o, d, origin_zero: bool):
+    """Each lane's conservative node test, in the kernel's arithmetic:
+    (N, M) bool, True where the lane may hit a sphere under the node."""
+    d0, d1, d2 = d
+    nodes = hier.nodes
+    cx, cy, cz, rl = (nodes[:, c][None, :] for c in range(4))
+    if origin_zero:
+        w0, w1, w2 = cx, cy, cz
+        oq = torch.zeros_like(d0)
+        mon = torch.zeros_like(d0)
+    else:
+        o0, o1, o2 = o
+        oq = o0 * o0 + o1 * o1 + o2 * o2
+        mon = CULL_SLOPE * vec.sqrt(oq)
+        w0, w1, w2 = cx - o0[:, None], cy - o1[:, None], cz - o2[:, None]
+    a2 = d0 * d0 + d1 * d1 + d2 * d2
+    brute = ~(torch.abs(a2 - 1.0) <= DIR_TOL) | ~(oq <= ORG_Q_MAX)
+    d0, d1, d2 = d0[:, None], d1[:, None], d2[:, None]
+    b = w0 * d0 + w1 * d1 + w2 * d2
+    q = w0 * w0 + w1 * w1 + w2 * w2
+    lim = rl + mon[:, None]
+    may = ~(q - b * b > lim * lim) & ~(b < -lim)
+    return may | brute[:, None]
+
+
+def cull_walk(hier: SphereBVH, may, alive):
+    """The warps' walk over the hierarchy: a warp (WARP consecutive lanes)
+    tests every group, and the leaves of each group it enters; it enters a
+    node when any of its live lanes may hit under it. may (N, M) bool from
+    cull_lanes, alive (N,) bool. Returns (visited, entered), each
+    (N / WARP, M) bool."""
+    m, n_groups = hier.nodes.shape[0], hier.n_groups
+    links = hier.links.tolist()
+    vote = (may & alive[:, None]).reshape(-1, WARP, m).any(dim=1)
+    visited = torch.zeros_like(vote)
+    visited[:, :n_groups] = True
+    for g in range(n_groups):
+        first, count = links[g][:2]
+        visited[:, first:first + count] = vote[:, g:g + 1]
+    return visited, visited & vote
+
+
+def intersect_culled_plain(sph_table, hier: SphereBVH, o0, o1, o2, d0, d1,
+                           d2, alive, origin_zero: bool):
+    """The full-variant kernel's visit order in plain PyTorch: per lane the
+    unconditional spheres, then the spheres of each leaf that the lane's
+    warp enters (in an entered group), leaves in depth-first order, each
+    pair taken by the (key,
+    index) rule `at >= 0 && (at < best || (at == best && s < best_idx))`
+    from (BIG, 0). Equals intersect_regs on the live lanes. Returns
+    (best_at, best_idx, stats): stats counts per warp its live lanes, the
+    nodes visited, the leaves entered and the spheres tested."""
+    n = d0.shape[0]
+    o, d = (o0, o1, o2), (d0, d1, d2)
+    may = cull_lanes(hier, o, d, origin_zero)
+    visited, entered = cull_walk(hier, may, alive)
+    lane_warp = torch.arange(n, device=d0.device) // WARP
+    order = hier.order.tolist()
+    links = hier.links.tolist()
+    best_at = torch.full_like(d0, BIG)
+    best_idx = torch.zeros(n, dtype=torch.int64, device=d0.device)
+    oc = [x[:, None] for x in o]
+    dc = [x[:, None] for x in d]
+    od, oq = _ray_terms(oc, dc, origin_zero)
+
+    def take(j, lanes):
+        s = order[j]
+        at = _select(*(sph_table[c, s:s + 1][None, :] for c in range(4)),
+                     oc, dc, od, oq, origin_zero)[:, 0]
+        upd = lanes & (at >= 0.0) & ((at < best_at) | ((at == best_at)
+                                                      & (s < best_idx)))
+        best_at.copy_(torch.where(upd, at, best_at))
+        best_idx.copy_(torch.where(upd, s, best_idx))
+
+    everyone = torch.ones(n, dtype=torch.bool, device=d0.device)
+    for j in range(hier.n_uncond):
+        take(j, everyone)
+    leaf_size = hier.links[:, 1].to(torch.int64).to(d0.device)
+    leaf_size[:hier.n_groups] = 0
+    for k in range(hier.n_groups, len(links)):
+        lanes = entered[lane_warp, k]
+        first, count = links[k][:2]
+        for j in range(first, first + count):
+            take(j, lanes)
+    stats = {"live_lanes": alive.reshape(-1, WARP).sum(1),
+             "nodes_visited": visited.sum(1),
+             "leaves_entered": (entered & (leaf_size > 0)).sum(1),
+             "spheres_tested": hier.n_uncond + (entered.long()
+                                                * leaf_size).sum(1)}
+    return best_at, best_idx.to(torch.int32), stats
+
+
+SMEM_MAX = 232_448  # shared memory a CTA may take on the card
+
+
+def tree_args(what: str, sphere_bvh, device, n_s: int, listed: bool):
+    """The hierarchy's part of a bounce kernel's C arguments: (order,
+    n_order, n_uncond, nodes, links, n_nodes, n_groups), all None / 0 for
+    the listed variant. The full variant on the card needs the hierarchy;
+    raises without it, when nodes or links are not 16-byte aligned (the
+    kernel reads their rows as float4 / int4) or when it does not fit the
+    CTA's shared memory."""
+    if listed:
+        return None, 0, 0, None, None, 0, 0
+    if sphere_bvh is None:
+        raise ValueError(f"{what}: the full variant needs sphere_bvh "
+                         "(build_sphere_bvh of the sphere table)")
+    order, nodes, links, n_uncond, n_groups = sphere_bvh
+    n_order, m = order.shape[0], nodes.shape[0]
+    check_tensors(what, device, [
+        ("sphere_bvh.order", order, torch.int32, (n_order,)),
+        ("sphere_bvh.nodes", nodes, torch.float32, (m, 4)),
+        ("sphere_bvh.links", links, torch.int32, (m, 4))])
+    if nodes.data_ptr() % 16 or links.data_ptr() % 16:
+        raise ValueError(f"{what}: sphere_bvh.nodes and links must be "
+                         "16-byte aligned (the kernel reads them as float4 "
+                         "/ int4 rows)")
+    if not (0 <= n_uncond <= n_order <= n_s and 0 <= n_groups <= m
+            and n_order + m > 0):
+        raise ValueError(f"{what}: sphere_bvh of {n_order} entries ({n_uncond}"
+                         f" unconditional) for {n_s} spheres")
+    if 20 * n_order + 32 * m > SMEM_MAX:
+        raise ValueError(f"{what}: sphere_bvh takes more than {SMEM_MAX} B "
+                         "of shared memory")
+    return (order.data_ptr(), n_order, n_uncond, nodes.data_ptr(),
+            links.data_ptr(), m, n_groups)
+
+
 def check_state(what, state):
     """The wavefront contract of the path tracer's kernels: a (10, rows, 128)
     f32 state with rows a multiple of 8 (whole 1024-ray blocks), on the
@@ -147,10 +418,11 @@ def check_state(what, state):
 
 
 def intersect_state_plain(sph_table, state, *, origin_zero: bool,
-                          block_lists=None):
+                          block_lists=None, sphere_bvh=None):
     """Plain PyTorch version of intersect_state: intersect_regs, or
     intersect_regs_listed with block_lists, over the state's rays, and
-    (BIG, 0) on every dead lane."""
+    (BIG, 0) on every dead lane. sphere_bvh is not read: the kernel's walk
+    gives intersect_regs' result."""
     comps = [state[c].reshape(-1) for c in range(6)]
     if block_lists is None:
         at, idx = intersect_regs(sph_table, *comps, origin_zero=origin_zero)
@@ -164,13 +436,16 @@ def intersect_state_plain(sph_table, state, *, origin_zero: bool,
     return at.reshape(state.shape[1:]), idx.reshape(state.shape[1:])
 
 
-def intersect_state(sph_table, state, *, origin_zero: bool, block_lists=None):
+def intersect_state(sph_table, state, *, origin_zero: bool, block_lists=None,
+                    sphere_bvh=None):
     """Nearest sphere of every ray of the (10, rows, 128) wavefront state
     (the JAX intersect_state_pallas): sph_table (4, S); block_lists =
     (lists (n_blk, K) int32, counts (n_blk, 1) int32) restricts each
     1024-ray block to its ascending list (bounce 0 in tile-major order);
-    origin_zero: every ray starts at the origin. Returns (at (rows, 128) f32
-    a*t key, idx (rows, 128) int32); a miss is (BIG, 0).
+    without them the kernel walks sphere_bvh (build_sphere_bvh of the same
+    table), which it then needs; origin_zero: every ray starts at the
+    origin. Returns (at (rows, 128) f32 a*t key, idx (rows, 128) int32); a
+    miss is (BIG, 0).
 
     Dead lanes: the JAX kernel fills a wholly dead 1024-ray block with
     (BIG, 0) but computes the dead lanes of a live block, which its shading
@@ -198,6 +473,8 @@ def intersect_state(sph_table, state, *, origin_zero: bool, block_lists=None):
     if not 0 < n_s <= 8192:
         raise ValueError(f"intersect_state: want 0 < S <= 8192 spheres, got "
                          f"{n_s}")
+    tree = tree_args("intersect_state", sphere_bvh, state.device, n_s,
+                     lists is not None)
     lib = _build.load()
     at = torch.empty(rows, LANES, dtype=torch.float32, device=state.device)
     idx = torch.empty(rows, LANES, dtype=torch.int32, device=state.device)
@@ -205,8 +482,8 @@ def intersect_state(sph_table, state, *, origin_zero: bool, block_lists=None):
         sph_table.data_ptr(), n_s, state.data_ptr(),
         None if lists is None else lists.data_ptr(),
         None if counts is None else counts.data_ptr(),
-        0 if lists is None else lists.shape[1], at.data_ptr(), idx.data_ptr(),
-        n, int(bool(origin_zero)),
+        0 if lists is None else lists.shape[1], *tree, at.data_ptr(),
+        idx.data_ptr(), n, int(bool(origin_zero)),
         torch.cuda.current_stream(state.device).cuda_stream)
     _build.check(lib, err, "intersect_state")
     intersect_state.launches += 1

@@ -128,3 +128,72 @@ def test_walk_wrapper_refuses_malformed_input(meshes):
     with pytest.raises(ValueError):  # active is not bool
         bw.bvh8_walk(m.table, org, org, torch.zeros(8), torch.ones(8),
                      m.node_end, m.stride)
+
+
+def _two_lane_combine(org, d, rows, rows_i, best):
+    """The triangle-pair step of csrc/bvh8_walk.cu: lanes 0 and 1 test the
+    two triangles against the old best at once, and the second wins iff it
+    accepts and (the first does not, or tt2 <= tt1); else the first wins
+    iff it accepts. A best index of -1 marks a test that did not accept."""
+    is_tri = torch.ones(org.shape[0], dtype=torch.bool)
+    unset = best[:3] + (torch.full_like(best[3], -1),)
+    one = bw._mt_update(org, d, rows, rows_i, 0, unset, is_tri)
+    two = bw._mt_update(org, d, rows, rows_i, 12, unset, is_tri)
+    ok1, ok2 = one[3] != -1, two[3] != -1
+    second = ok2 & (~ok1 | (two[0] <= one[0]))
+    return tuple(torch.where(second, y, torch.where(ok1, x, b))
+                 for b, x, y in zip(best, one, two))
+
+
+@pytest.mark.parametrize("case", ["random", "same_triangle", "t_at_best"])
+def test_two_lane_triangle_combine_is_the_sequential_update(case):
+    """The combine equals two sequential _mt_update calls (the plain walk's
+    order): on random pairs, on pairs of one triangle twice (tt1 == tt2:
+    the second wins, as t <= best takes it), and with the old best set to
+    the first triangle's own t (tt == best: taken)."""
+    rs = np.random.RandomState(17)
+    n = 4096
+    a = rs.uniform(-2, 2, (2, n, 3))
+    e1 = rs.uniform(-2, 2, (2, n, 3))
+    e2 = rs.uniform(-2, 2, (2, n, 3))
+    if case == "same_triangle":
+        a[1], e1[1], e2[1] = a[0], e1[0], e2[0]
+    # rays from a box aimed at a point of either triangle
+    org = rs.uniform(-6, 6, (n, 3))
+    w = rs.dirichlet([1, 1, 1], n)
+    k = (np.arange(n) % 2)[:, None, None]
+    ak, e1k, e2k = (np.where(k[:, 0], x[1], x[0]) for x in (a, e1, e2))
+    aim = ak + w[:, 1:2] * e1k + w[:, 2:3] * e2k
+    d = aim - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rows = np.zeros((n, 32), np.float32)
+    rows[:, 0:9] = np.concatenate([a[0], e1[0], e2[0]], axis=1)
+    rows[:, 12:21] = np.concatenate([a[1], e1[1], e2[1]], axis=1)
+    rows_i = rows.view(np.int32)
+    rows_i[:, 9] = np.arange(n)
+    rows_i[:, 21] = n + np.arange(n)
+    rows, rows_i = torch.from_numpy(rows), torch.from_numpy(rows_i.copy())
+    org = torch.from_numpy(org.astype(np.float32))
+    d = torch.from_numpy(d.astype(np.float32))
+    t0 = torch.from_numpy(np.where(rs.rand(n) < 0.5, 1e30, rs.uniform(
+        0, 12, n)).astype(np.float32))
+    best = (t0, torch.zeros(n), torch.zeros(n),
+            torch.full((n,), -7, dtype=torch.int32))
+    is_tri = torch.ones(n, dtype=torch.bool)
+    if case == "t_at_best":
+        first = bw._mt_update(org, d, rows, rows_i, 0, best, is_tri)
+        best = (first[0],) + best[1:]  # the first's own t where it hit
+    want = bw._mt_update(org, d, rows, rows_i, 12,
+                         bw._mt_update(org, d, rows, rows_i, 0, best,
+                                       is_tri), is_tri)
+    got = _two_lane_combine(org, d, rows, rows_i, best)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    won_first = (want[3] >= 0) & (want[3] < n)
+    won_second = want[3] >= n
+    if case == "same_triangle":
+        assert int(won_second.sum()) > 100 and not bool(won_first.any())
+    elif case == "t_at_best":
+        assert int((won_first & (want[0] == best[0])).sum()) > 100
+    else:
+        assert int(won_first.sum()) > 100 and int(won_second.sum()) > 100

@@ -32,6 +32,11 @@ rays of exact-zero direction components and on a uv-sphere with empty
 tiles. The ganesha render on the card is held to the CPU render by
 the cornell bounds.
 
+The full-variant bounce kernels (fused and intersect_state) walk the
+per-scene sphere hierarchy per warp; their tests check that the walk
+skips leaves, and a copied sphere checks the lowest-index tie rule. The
+BVH8 walk runs LANES_PER_RAY > 1 lanes per ray.
+
 The two-kernel bounce (intersect_state, shade_state), the clustered sphere
 kernel and the raster-grid gather must equal their plain versions exactly;
 the two-kernel chain must equal the fused bounce kernel, and the
@@ -68,23 +73,72 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _walk_skips(r, state):
+    """Whether the full-variant walk on `state` skips a leaf in some warp
+    with a live lane (its plain emulation's count)."""
+    comps = [state[c].reshape(-1) for c in range(6)]
+    alive = state[9].reshape(-1) > 0
+    hier = r.sphere_hierarchy()
+    *_, stats = sk.intersect_culled_plain(r.sph_table, hier, *comps, alive,
+                                          origin_zero=False)
+    n_leaves = hier.links.shape[0] - hier.n_groups
+    live_warp = stats["live_lanes"] > 0
+    return bool((stats["leaves_entered"][live_warp] < n_leaves).any())
+
+
 def test_fused_bounce_kernel_matches_plain(dev):
+    """Every bounce of a 256x128 shirley pass: bounce 0 listed, bounces 1-7
+    through the walk of the sphere hierarchy, which skips leaves."""
     scene, cam, bg = shirley.build(2.0, dev)
-    r = Renderer(scene, cam, bg, 128, 64, 1, 3, dev)
+    r = Renderer(scene, cam, bg, 256, 128, 1, 8, dev)
     state, off = r.initial_wavefront(0)
     rad = torch.zeros(3, state.shape[1], 128, device=dev)
-    for b in range(3):
+    skipped = 0
+    for b in range(8):
         args = (r.sph_table, state, r.pack_table, off,
                 r.sampler.limbs(2 + 2 * b, 3 + 2 * b), bg[1], rad)
         kw = dict(bg_mode=bg[0], origin_zero=b == 0,
-                  block_lists=(r.lists, r.counts) if b == 0 else None)
+                  block_lists=(r.lists, r.counts) if b == 0 else None,
+                  sphere_bvh=r.sphere_hierarchy())
         before = fbk.fused_bounce.launches
         st_k, rad_k = fbk.fused_bounce(*args, **kw)
         assert fbk.fused_bounce.launches == before + 1
         st_p, rad_p = fbk.fused_bounce_plain(*args, **kw)
-        assert torch.equal(st_k, st_p), (st_k - st_p).abs().max()
-        assert torch.equal(rad_k, rad_p), (rad_k - rad_p).abs().max()
+        assert torch.equal(st_k, st_p), (b, (st_k - st_p).abs().max())
+        assert torch.equal(rad_k, rad_p), (b, (rad_k - rad_p).abs().max())
+        skipped += b > 0 and _walk_skips(r, state)
         state, rad = st_k, rad_k
+    assert skipped >= 4
+
+
+def test_fused_bounce_walk_ties_to_the_lowest_index(dev):
+    """A sphere copied into a pad slot: the two have equal keys, sit in
+    different places of the hierarchy, and the lower index must win, as in
+    the plain version's first-index minimum."""
+    scene, cam, bg = shirley.build(2.0, dev)
+    r = Renderer(scene, cam, bg, 128, 64, 1, 3, dev)
+    state, off = r.initial_wavefront(0)
+    rad = torch.zeros(3, state.shape[1], 128, device=dev)
+    state, rad = fbk.fused_bounce(
+        r.sph_table, state, r.pack_table, off, r.sampler.limbs(2, 3), bg[1],
+        rad, bg_mode=bg[0], origin_zero=True,
+        block_lists=(r.lists, r.counts))
+    sph = r.sph_table.clone()
+    big = int(torch.argsort(scene.radius * scene.valid, descending=True)[1])
+    sph[:, sph.shape[1] - 1] = sph[:, big]
+    hier = sk.build_sphere_bvh(sph)
+    assert int((hier.order == big).sum()) == 1
+    assert int((hier.order == sph.shape[1] - 1).sum()) == 1
+    args = (sph, state, r.pack_table, off, r.sampler.limbs(4, 5), bg[1], rad)
+    kw = dict(bg_mode=bg[0], origin_zero=False, sphere_bvh=hier)
+    st_k, rad_k = fbk.fused_bounce(*args, **kw)
+    st_p, rad_p = fbk.fused_bounce_plain(*args, **kw)
+    assert torch.equal(st_k, st_p) and torch.equal(rad_k, rad_p)
+    at, idx = sk.intersect_state(sph, state, origin_zero=False,
+                                 sphere_bvh=hier)
+    want = sk.intersect_state_plain(sph, state, origin_zero=False)
+    assert torch.equal(at, want[0]) and torch.equal(idx, want[1])
+    assert int((idx == big).sum()) > 0
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.03, 0.5, 1.0])
@@ -123,6 +177,9 @@ def test_wrappers_refuse_malformed_input(dev):
         fbk.fused_bounce(sph, state.transpose(1, 2).contiguous()
                          .transpose(1, 2), pack, off, limbs, bgc, rad,
                          bg_mode=1, origin_zero=False)
+    with pytest.raises(ValueError):  # the full variant without a hierarchy
+        fbk.fused_bounce(sph, state, pack, off, limbs, bgc, rad, bg_mode=1,
+                         origin_zero=False)
 
 
 def test_card_render_equals_cpu_render(dev):
@@ -137,6 +194,25 @@ def test_card_render_equals_cpu_render(dev):
     img_c, segs_c = make_render_fn(cam_c, bg_c, 160, 80, 2, 8, cpu)(scene_c)
     assert segs_k == segs_c
     assert (img_k.cpu() - img_c).abs().max() <= 1e-4
+
+
+def test_render_fn_builds_the_sphere_hierarchy_once_per_scene(dev,
+                                                              monkeypatch):
+    """make_render_fn builds the hierarchy at the first render of a scene
+    object and reuses it for later renders of that object."""
+    from pathtracer_tpu_torch import integrator
+
+    built = []
+    build = integrator.build_sphere_bvh
+    monkeypatch.setattr(integrator, "build_sphere_bvh",
+                        lambda t: built.append(1) or build(t))
+    scene, cam, bg = shirley.build(2.0, dev)
+    render = make_render_fn(cam, bg, 64, 32, 1, 3, dev)
+    first, _ = render(scene)
+    again, _ = render(scene)
+    assert len(built) == 1 and torch.equal(first, again)
+    render(shirley.build(2.0, dev)[0])
+    assert len(built) == 2
 
 
 def test_small_render_on_card_matches_golden(dev):
@@ -320,6 +396,36 @@ def test_bvh8_walk_kernel_matches_plain(dev):
     hit = got[4]
     assert 100 < int(hit.sum()) < n + nz - 100
     assert int(hit[n:].sum()) > 4 and not bool(hit[~args[3]].any())
+    assert bw.LANES_PER_RAY > 1
+
+
+def test_bvh8_walk_kernel_matches_plain_on_photon_bounces(dev):
+    """The walk's inputs of every bounce of a 4,000-photon pass over
+    scenes/test_ganesha.ply, as the photon pass makes them."""
+    from pathtracer_tpu_torch.models import ganesha
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    scene, _, lights, mesh = ganesha.build(
+        os.path.join(ROOT, "scenes", "test_ganesha.ply"), 1.0, dev)
+    trace, _, _ = ppm.make_photon_pass(scene, lights, 4000, 4, mesh)
+    walk_in = []
+    walk = mesh.intersect
+
+    def record(org, d, t_max0, active):
+        walk_in.append(tuple(x.clone() for x in (org, d, t_max0, active)))
+        return walk(org, d, t_max0, active)
+
+    mesh.intersect = record
+    trace(0)
+    del mesh.intersect
+    assert len(walk_in) == 4
+    for org, d, t_max0, active in walk_in:
+        args = (mesh.table, org, d, t_max0, active, mesh.node_end,
+                mesh.stride)
+        got = bw.bvh8_walk(*args)
+        want = bw.bvh8_walk_plain(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert int(got[4].sum()) > 0
 
 
 def test_intersect_tile_tris_kernel_matches_plain(dev):
@@ -414,6 +520,10 @@ def test_mesh_wrappers_refuse_malformed_input(dev):
     with pytest.raises(ValueError):  # not contiguous
         bw.bvh8_walk(m.table, org.t().contiguous().t(), org,
                      torch.zeros(8, device=dev), on, m.node_end, m.stride)
+    shifted = torch.zeros(m.table.numel() + 1, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):  # table off by 4 B
+        bw.bvh8_walk(shifted.view_as(m.table).copy_(m.table), org, org,
+                     torch.zeros(8, device=dev), on, m.node_end, m.stride)
     table = torch.zeros(16, 256, device=dev)
     start = torch.arange(2, dtype=torch.int32, device=dev)
     d = torch.zeros(32 * 32, 3, device=dev)
@@ -425,14 +535,17 @@ def test_mesh_wrappers_refuse_malformed_input(dev):
 
 def test_two_kernel_bounce_matches_plain_and_fused(dev):
     """Three bounces of a 128x64 shirley wavefront: each kernel against its
-    plain version, and the chain against the fused kernel."""
+    plain version, and the chain against the fused kernel; bounces 1 and 2
+    walk the sphere hierarchy, which skips leaves."""
     scene, cam, bg = shirley.build(2.0, dev)
     r = Renderer(scene, cam, bg, 128, 64, 1, 3, dev)
     state, off = r.initial_wavefront(0)
     rad = torch.zeros(3, state.shape[1], 128, device=dev)
     for b in range(3):
         kw = dict(origin_zero=b == 0,
-                  block_lists=(r.lists, r.counts) if b == 0 else None)
+                  block_lists=(r.lists, r.counts) if b == 0 else None,
+                  sphere_bvh=r.sphere_hierarchy())
+        assert b == 0 or _walk_skips(r, state)
         before = sk.intersect_state.launches
         at, idx = sk.intersect_state(r.sph_table, state, **kw)
         assert sk.intersect_state.launches == before + 1
@@ -529,6 +642,19 @@ def test_new_wrappers_refuse_malformed_input(dev):
         sk.intersect_state(sph, state[:, :7].contiguous(), origin_zero=False)
     with pytest.raises(ValueError):  # table on the CPU
         sk.intersect_state(sph.cpu(), state, origin_zero=False)
+    with pytest.raises(ValueError):  # the full variant without a hierarchy
+        sk.intersect_state(sph, state, origin_zero=False)
+    hier = sk.build_sphere_bvh(torch.tensor(
+        [[0.0, 2.0], [0.0, 0.0], [0.0, 0.0], [1.0, -3.0]], device=dev))
+    with pytest.raises(ValueError):  # the hierarchy on the CPU
+        sk.intersect_state(sph, state, origin_zero=False,
+                           sphere_bvh=sk.SphereBVH(
+                               *(x.cpu() for x in hier[:3]), *hier[3:]))
+    nodes = torch.zeros(hier.nodes.numel() + 1, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):  # nodes off by 4 B
+        sk.intersect_state(sph, state, origin_zero=False,
+                           sphere_bvh=hier._replace(
+                               nodes=nodes.view_as(hier.nodes)))
     i32 = torch.zeros(8, 128, dtype=torch.int32, device=dev)
     f32 = torch.zeros(8, 128, device=dev)
     pack = torch.zeros(10, 1, 128, device=dev)
