@@ -42,7 +42,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
   6. PPM kernels: the photon mapper's three kernels against their plain
      versions, which they must equal exactly: intersect_spheres and
      intersect_tris on the cornell photon bounce-0 rays (75,776) and eye
-     bounce-0 rays (360,448); gather_flux_chunks on the iteration-1 eye
+     bounce-0 rays (360,448), intersect_tris with the host's microseconds
+     per call, its real columns and the live pairs that reach its full
+     test (tri_pair_tests, which must find no skipped pair accepted);
+     gather_flux_chunks on the iteration-1 eye
      hits at r(1), the kernel over all 352 blocks and the plain version on
      32 of them (the 16 with the longest chunk lists and 16 evenly spaced
      others; blocks are independent), with times (CUDA events, and device
@@ -56,7 +59,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
      all blocks against its plain version on 32 (the 16 with the longest
      ranges and 16 spaced), equal, and on all lanes against
      gather_flux_chunks (the same photons summed in another order: rtol
-     1e-4, atol 1e-6), with times and cell / r;
+     1e-4, atol 1e-6), with times and cell / r, and what sets its time:
+     the longest lane's pairs and longest single range, the lanes over
+     4,096 and 16,384 pairs, the pairs over 32 x each warp's longest lane,
+     the distinct ranges per warp and offset, and the longest block alone;
   7. cornell render: `cornell-box 600x600, 10 iterations, 75,000 photons,
      4 bounces` through PPMRenderer.render (what the CLI calls), with the
      three kernels' launch counts, the first iteration's seconds and the
@@ -79,6 +85,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
      (bounces 0 and 1 timed against the plain version)
      (75,776 lanes, t_max0 the pool winner's t; the plain version over all
      lanes, which also counts each lane's steps and the table rows read);
+     intersect_tris on the floor pool (2 real columns of 128) and
+     iteration 1's photon bounce-0 rays;
      intersect_tile_tris on iteration 1's eye primaries (608 x 600 rays),
      the plain version on 32 tiles (the 16 with the longest lists and 16
      spaced) and the kernel on the same tiles and on all 361, with its
@@ -180,14 +188,19 @@ FP32_OPS_PER_MS = 67e12 / 1e3
 # ray-cluster cull test of intersect_clustered.cu (17), the shading of a
 # lane that hit (shade_lane of pt_bounce.cuh, ~300 with sinf and cosf at
 # 20 each) and of one that missed (17), a ray-triangle test of
-# intersect_tris.cu and bvh8_walk.cu (46) and of the origin-zero
-# intersect_tile_tris.cu (44), a hit-photon pair of gather_chunks.cu and
-# gather_flux.cu (22), a node row of bvh8_walk.cu (185: 9 for the ray's
+# intersect_tris.cu and bvh8_walk.cu (46), and a pair of intersect_tris.cu
+# that leaves at its |det| test (14: pvec, det), at its u tests (23: tvec,
+# U, |det| M1) or at its v, t and u + v tests (44: qvec, V, Tn, the sum,
+# |det| M2), the origin-zero test of intersect_tile_tris.cu (44), a
+# hit-photon pair of gather_chunks.cu and gather_flux.cu that adds (22),
+# and one of gather_flux.cu outside r (8: d^2) or inside r and facing away
+# (13: d^2, n . n_p), a node row of bvh8_walk.cu (185: 9 for the ray's
 # frame, 8 children x 3 axes x 6 slab operations, 32 for the children's
 # min/max reductions), and a node test of the sphere hierarchy's walk in
 # pt_bounce.cuh (17).
 OPS = dict(sphere=20, fused_sphere=18, listed_sphere=9, cull=17, shade=300,
-           shade_miss=17, tri=46, tile_tri=44, gather=22, node=185,
+           shade_miss=17, tri=46, tri_det=14, tri_u=23, tri_vt=44,
+           tile_tri=44, gather=22, gather_far=8, gather_near=13, node=185,
            sphere_node=17)
 # blocks the plain raster gather is held on
 RASTER_LONGEST = RASTER_SPACED = 16
@@ -206,6 +219,18 @@ BEFORE_SPLIT_MS = dict(gather_all_blocks=8.120, gather_checked_blocks=7.840,
 # walk at ganesha photon bounce 0
 BEFORE_CULL_MS = dict(fused_bounce=0.1439, intersect_state=0.1149,
                       fused_bounce_render=23.51, bvh8_walk=0.173)
+# device ms of the triangle-pool kernel and the raster gather before their
+# redesign for this card, as the previous version of this script read them
+# in one call with the redesigned kernels (PERF.md, §6; NVIDIA H100 80GB
+# HBM3, 700 W): the triangle kernel on cornell's photon and eye bounce-0
+# rays and in the profiled cornell and ganesha iterations; the raster
+# gather over all 352 blocks of cornell iteration 1 (CUDA events: the
+# profiler recorded none)
+BEFORE_REDESIGN_MS = dict(intersect_tris_photon_b0=0.0356,
+                          intersect_tris_eye_b0=0.0692,
+                          intersect_tris_cornell_iteration=0.652,
+                          intersect_tris_ganesha_iteration=0.419,
+                          gather_flux_events=1.8247)
 # list positions per gather work item tried by --sweep-seg
 SWEEP_SEGS = (4, 8, 16, 32, 64)
 # Kernel vs plain on the card: none. The kernels are built without FMA
@@ -406,6 +431,28 @@ def compare(torch, name, fn_k, fn_p, what, kernel, plain_reps=7,
     require(exact, f"{name} ({what}): the kernel differs from its plain "
             f"version (max abs {err})")
     return err, kms, pms, want
+
+
+def tri_skips(torch, tk, table, org, d, alive) -> dict:
+    """The triangle kernel's skips on these rays (tri_pair_stages, the plain
+    emulation, on the card): the real columns, the live pairs (those of the
+    rays of live 1024-ray blocks), how many leave at each of the kernel's
+    stages, those accepted, and `ops`: each pair's float32 operations up to
+    where it leaves (OPS), the operation count of the kernel's bound.
+    Requires that no skipped pair is accepted."""
+    real = torch.nonzero((table[3:9] != 0).any(dim=0)).flatten()
+    live = alive.reshape(-1, 1024).any(dim=1).repeat_interleave(1024)
+    stage, accepted = tk.tri_pair_stages(table[:, real], org[live], d[live])
+    require(not bool(((stage != tk.FULL) & accepted).any()),
+            "intersect_tris: the pre-reject skips an accepted pair")
+    at = [int((stage == k).sum()) for k in (tk.AT_DET, tk.AT_U, tk.AT_VT,
+                                             tk.FULL)]
+    ops = sum(n * OPS[k] for n, k in zip(at, ("tri_det", "tri_u", "tri_vt",
+                                              "tri")))
+    return dict(real_columns=real.numel(), live_pairs=stage.numel(),
+                left_at_det=at[0], left_at_u=at[1], left_at_vt=at[2],
+                full_tests=at[3], accepted_pairs=int(accepted.sum()),
+                ops=ops)
 
 
 def no_path_kernels() -> dict:
@@ -799,6 +846,40 @@ def clustered_phase(torch, scene, sph_table, state):
     return err, kms, pms, c_bound, s_ms
 
 
+def raster_design_readings(torch, gk, args, want) -> dict:
+    """CUDA-event ms of the raster gather's kernel alone (its C entry point,
+    without the wrapper's glue) on args, as shipped and with each of its
+    design choices undone: every warp walked in batches (HEAVY = 0), none
+    (HEAVY past every lane), and the warps in index order (Morton order of
+    the hits) instead of longest first. Each must equal want."""
+    from pathtracer_tpu_torch import _build
+    point, normal, s, e, photons_t, r = args
+    n = point.shape[0]
+    hits = torch.cat([point.T, normal.T]).contiguous()
+    longest = gk.warp_order(s, e)
+    morton = torch.arange(n // 32, dtype=torch.int32, device=point.device)
+    out = torch.empty(3, n, dtype=torch.float32, device=point.device)
+    stream = torch.cuda.current_stream(point.device).cuda_stream
+    lib = _build.load()
+    ways = {"shipped": (gk.HEAVY, longest), "all_batched": (0, longest),
+            "none_batched": (2 ** 31 - 1, longest),
+            "morton_order": (gk.HEAVY, morton)}
+    res = {}
+    for name, (heavy, order) in ways.items():
+        def launch(heavy=heavy, order=order):
+            _build.check(lib, lib.pt_gather_flux(
+                hits.data_ptr(), s.data_ptr(), e.data_ptr(),
+                photons_t.data_ptr(), photons_t.shape[1],
+                float(gk._radius_f32(r)[0]), order.data_ptr(), heavy,
+                out.data_ptr(), n, stream), "gather_flux")
+        launch()
+        torch.cuda.synchronize()
+        require(torch.equal(out.T, want), f"gather_flux ({name}) differs "
+                "from the wrapper's result")
+        res[f"{name}_kernel_ms"] = f"{time_ms(torch, launch):.4f}"
+    return res
+
+
 def raster_gather_phase(torch, np, deposits, hits, r1, chunks):
     """Phase 6, the raster-grid gather on cornell iteration 1's deposits
     and eye hits at r(1). Returns its JSON entry (without launches)."""
@@ -846,13 +927,47 @@ def raster_gather_phase(torch, np, deposits, hits, r1, chunks):
     diff = (full - chunk).abs()
     rel = float((diff / chunk.abs().clamp(min=1e-30)).max())
     close = bool((diff <= 1e-6 + 1e-4 * chunk.abs()).all())
+    # what sets the time: the longest lane's pairs, its block alone, and
+    # how much of each warp's walk its longest lane holds (the warp runs
+    # until that lane ends)
+    top = int(torch.argmax(blk_len))
+    blk = slice(top * 1024, (top + 1) * 1024)
+    one = (pt[blk].contiguous(), nm[blk].contiguous(),
+           s[:, blk].contiguous(), e[:, blk].contiguous(), photons_t, r1)
+    top_ms = time_ms(torch, lambda: gk.gather_flux(*one))
+    _, per_top, _, _ = device_times(torch, lambda: gk.gather_flux(*one),
+                                    reps=5)
+    warp_max = lane_len.reshape(-1, 32).amax(dim=1)
+    # distinct nonempty ranges among a warp's lanes, per offset: the
+    # photons a warp's load of one position touches
+    key = torch.where(e > s, s.long() * (1 << 31) + e.long(), -1)
+    key = torch.sort(key.reshape(9, -1, 32), dim=2).values
+    distinct = ((key[:, :, 1:] != key[:, :, :-1]) & (key[:, :, 1:] >= 0)
+                ).sum(dim=2) + (key[:, :, 0] >= 0)
+    nonempty = (key >= 0).any(dim=2)
+    lane_max = int(lane_len.max())
+    measure = dict(
+        lane_range_max=lane_max,
+        single_range_max=int((e - s).max()),
+        lanes_over_4096=int((lane_len > 4096).sum()),
+        lanes_over_16384=int((lane_len > 16384).sum()),
+        pairs_over_warp_max_x32=f"{float(lane_len.sum()) / float(warp_max.sum() * 32):.4f}",
+        warp_distinct_ranges=f"{float(distinct[nonempty].float().mean()):.2f}",
+        longest_block_warp_distinct_ranges=f"{float(distinct[:, top * 32:(top + 1) * 32][nonempty[:, top * 32:(top + 1) * 32]].float().mean()):.2f}",
+        longest_block=top, longest_block_ms=f"{top_ms:.4f}",
+        longest_block_device_ms=device_ms_field(per_top,
+                                                "gather_flux_kernel"),
+        longest_block_pairs=int(lane_len[blk].sum()),
+        ns_per_pair_longest_lane=f"{top_ms * 1e6 / max(lane_max, 1):.3f}")
     ms = time_ms(torch, lambda: gk.gather_flux(*args))
     chunk_ms = time_ms(torch, lambda: gk.gather_flux_chunks(
         pt, nm, act, sbox, photons_c, r1))
     _, per, _, _ = device_times(torch, lambda: gk.gather_flux(*args), reps=5)
     cold_ms = time_cold_ms(torch, lambda: gk.gather_flux(*args))
-    # work: every hit-photon pair of the lanes' ranges; bytes: the hits,
-    # the ranges, the output and each photon that some range holds, once
+    measure.update(raster_design_readings(torch, gk, args, full))
+    # work: every hit-photon pair of the lanes' ranges, counted up to where
+    # a walk must take it (raster_pair_counts); bytes: the hits, the
+    # ranges, the output and each photon that some range holds, once
     np_pad = photons_t.shape[1]
     cover = torch.zeros(np_pad + 1, dtype=torch.int64, device=pt.device)
     cover.index_add_(0, s.reshape(-1).long(), torch.ones_like(
@@ -860,16 +975,22 @@ def raster_gather_phase(torch, np, deposits, hits, r1, chunks):
     cover.index_add_(0, e.reshape(-1).long(), -torch.ones_like(
         e.reshape(-1), dtype=torch.int64))
     covered = int((torch.cumsum(cover, 0)[:np_pad] > 0).sum())
-    pairs = int(lane_len.sum())
+    pairs, near, adding = gk.raster_pair_counts(*args)
+    require(pairs == int(lane_len.sum()), "raster_pair_counts: "
+            f"{pairs} pairs, the ranges hold {int(lane_len.sum())}")
     g_bound = bound(n * (24 + 72 + 12) + covered * 36,
-                    pairs * OPS["gather"])
+                    (pairs - near) * OPS["gather_far"]
+                    + (near - adding) * OPS["gather_near"]
+                    + adding * OPS["gather"])
     phase("gather_flux_full", hits=n, blocks=nblk,
           photon_columns=np_pad, radius=f"{r1:.6f}",
           cell=f"{float(cell):.6f}", cell_over_r=f"{float(cell) / r1:.3f}",
-          grid_s=f"{grid_s:.3f}", pairs=pairs, photons_in_ranges=covered,
+          grid_s=f"{grid_s:.3f}", pairs=pairs, pairs_inside_r=near,
+          pairs_adding=adding, photons_in_ranges=covered,
           lane_range_mean=f"{float(lane_len[act].float().mean()):.1f}",
-          lane_range_max=int(lane_len.max()), ms=f"{ms:.4f}",
+          **measure, ms=f"{ms:.4f}",
           device_ms=device_ms_field(per, "gather_flux_kernel"),
+          before_redesign_ms=BEFORE_REDESIGN_MS["gather_flux_events"],
           cold_l2_ms=f"{cold_ms:.4f}", chunk_gather_ms=f"{chunk_ms:.4f}",
           max_abs_diff_vs_chunk_gather=f"{float(diff.max()):.6e}",
           max_rel_diff_vs_chunk_gather=f"{rel:.6e}",
@@ -911,7 +1032,7 @@ def ppm_phases(torch, np, dev, smi):
     require(p_org.shape[0] == 75_776 and e_org.shape[0] == 360_448,
             f"rays {p_org.shape[0]}, {e_org.shape[0]}")
     times = {}
-    n_sph, n_tri = int(scene.valid.sum()), int(scene.tri_valid.sum())
+    n_sph = int(scene.valid.sum())
     for label, org, d, alive in (("photon_b0", p_org, p_d, p_alive),
                                  ("eye_b0", e_org, e_d, e_alive)):
         args = (org.contiguous(), d.contiguous(), alive)
@@ -919,8 +1040,9 @@ def ppm_phases(torch, np, dev, smi):
         # rays in (24 B + the alive byte), outputs, the valid primitives
         times[("bound_spheres", label)] = bound(
             n * (25 + 12) + sph.numel() * 4, n_alive * n_sph * OPS["sphere"])
-        times[("bound_tris", label)] = bound(
-            n * (25 + 8) + tri.numel() * 4, n_alive * n_tri * OPS["tri"])
+        skips = tri_skips(torch, tk, tri, *args)
+        t_bound = times[("bound_tris", label)] = bound(
+            n * (25 + 8) + tri.numel() * 4, skips["ops"])
         err_s, kms, pms, _ = compare(
             torch, "intersect_spheres",
             lambda: sk.intersect_spheres(sph, *args),
@@ -933,7 +1055,12 @@ def ppm_phases(torch, np, dev, smi):
             lambda: tk.intersect_tris(tri, *args),
             lambda: tk.intersect_tris_plain(tri, *args),
             f"{label}:{org.shape[0]}x{tri.shape[1]}",
-            kernel="intersect_tris_kernel")
+            kernel="intersect_tris_kernel",
+            host_us=f"{host_us(torch, lambda: tk.intersect_tris(tri, *args)):.1f}",
+            **skips, bound_ms=f"{t_bound['bound_ms']:.4f}",
+            bound_by=t_bound["bound_by"],
+            before_redesign_device_ms=BEFORE_REDESIGN_MS[
+                f"intersect_tris_{label}"])
         times[("intersect_tris", label)] = (err_t, kms, pms)
 
     # the gather at iteration 1: the render's photons, eye hits and radius
@@ -1079,6 +1206,8 @@ def ppm_phases(torch, np, dev, smi):
           device_idle_share_of_median=f"{1 - busy_ms / median_ms:.3f}",
           intersect_spheres_ms=f"{kernel_ms(per, 'intersect_spheres_kernel'):.3f}",
           intersect_tris_ms=f"{kernel_ms(per, 'intersect_tris_kernel'):.3f}",
+          intersect_tris_before_redesign_ms=BEFORE_REDESIGN_MS[
+              "intersect_tris_cornell_iteration"],
           gather_ms=f"{kernel_ms(per, 'gather_chunks_'):.3f}",
           gather_before_split_ms=BEFORE_SPLIT_MS["gather_cornell_iteration"],
           device_ops=f"{n_ops:.0f}", kernels_seen=len(per))
@@ -1140,6 +1269,8 @@ def mesh_kernel_phases(torch, np, dev):
     from pathtracer_tpu_torch.models import ganesha
     from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
     from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+    from pathtracer_tpu_torch.ops.cuda import tri_kernel as tk
+    from pathtracer_tpu_torch.scene import TRI_A, TRI_E1, TRI_E2
 
     size, iters, photons, bounces = (PPM_SIZE, PPM_ITERS, PPM_PHOTONS,
                                      PPM_BOUNCES)
@@ -1235,6 +1366,19 @@ def mesh_kernel_phases(torch, np, dev):
             require(exact, f"bvh8_walk (photon bounce {b}): the kernel "
                     "differs from its plain version")
         walk_bounds[b] = w_bound
+
+    # the floor pool on the photon bounce-0 rays (2 real columns of 128)
+    tp = scene.tri_pack
+    floor = tk.pack_tris(tp[:, TRI_A], tp[:, TRI_E1], tp[:, TRI_E2],
+                         scene.tri_valid)
+    fargs = (walk_in[0][0].contiguous(), walk_in[0][1].contiguous(),
+             walk_in[0][3])
+    compare(torch, "intersect_tris",
+            lambda: tk.intersect_tris(floor, *fargs),
+            lambda: tk.intersect_tris_plain(floor, *fargs),
+            f"ganesha_photon_b0:{fargs[0].shape[0]}x{floor.shape[1]}",
+            kernel="intersect_tris_kernel",
+            **tri_skips(torch, tk, floor, *fargs))
 
     # the eye primaries of iteration 1, one band of ceil(H/32)*32 rows; the
     # plain version on the 16 tiles with the longest lists and 16 spaced
@@ -1424,6 +1568,8 @@ def ganesha_phases(torch, np, smi, rend):
           gather_before_split_ms=BEFORE_SPLIT_MS["gather_ganesha_iteration"],
           tile_before_split_ms=BEFORE_SPLIT_MS["tile"],
           intersect_tris_ms=f"{kernel_ms(per, 'intersect_tris_kernel'):.3f}",
+          intersect_tris_before_redesign_ms=BEFORE_REDESIGN_MS[
+              "intersect_tris_ganesha_iteration"],
           intersect_spheres_ms=f"{kernel_ms(per, 'intersect_spheres_kernel'):.3f}",
           device_ops=f"{n_ops:.0f}", kernels_seen=len(per),
           tile_vs_walk_eye_max_abs=f"{ab_diff:.6e}")

@@ -56,7 +56,7 @@ _SIGNATURES = {
                        _F, _F, _F, _F, _F, _F, _I, _I, _P],
     "pt_intersect_clustered": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                _P],
-    "pt_gather_flux": [_P, _P, _P, _P, _I, _F, _P, _I, _P],
+    "pt_gather_flux": [_P, _P, _P, _P, _I, _F, _P, _I, _P, _I, _P],
 }
 
 _lib = None

@@ -45,7 +45,8 @@ __all__ = ["morton3", "build_photon_chunks", "block_chunk_lists",
            "block_items", "hit_morton_keys", "gather_flux_chunks",
            "gather_flux_chunks_plain",
            "raster3", "build_photon_grid_morton", "query_tables",
-           "gather_flux", "gather_flux_plain"]
+           "warp_order", "gather_flux", "gather_flux_plain",
+           "raster_pair_counts"]
 
 BIG = float(np.float32(3.0e38))
 BLOCK = 1024  # eye hits per block (one CTA of the kernel)
@@ -70,6 +71,10 @@ N_OFF = 9
 _OFFSETS_YZ = [(y, z) for y in (-1, 0, 1) for z in (-1, 0, 1)]
 # range positions per step of gather_flux_plain
 RANGE_STEP = 64
+# pairs of a warp's longest lane above which gather_flux's kernel walks the
+# warp in batches (csrc/gather_flux.cu); chip_smoke.py phase 6 times the
+# kernel with every warp batched and with none
+HEAVY = 4096
 
 
 def morton3(cx, cy, cz) -> torch.Tensor:
@@ -393,6 +398,47 @@ def gather_flux_plain(point, normal, s_tab, e_tab, photons_t, radius):
     return acc.T
 
 
+def warp_order(s_tab, e_tab) -> torch.Tensor:
+    """The 32-hit groups of gather_flux's kernel (one a warp), longest
+    first: (n / 32,) int32, the groups sorted by the pairs of their longest
+    lane (the sum of its 9 range lengths), descending, ties by index. The
+    kernel runs its warps in this order, so that the longest start first;
+    no hit's sum depends on it."""
+    lane = (e_tab - s_tab).clamp(min=0).sum(dim=0)
+    return torch.argsort(lane.view(-1, 32).amax(dim=1), descending=True,
+                         stable=True).to(torch.int32)
+
+
+def raster_pair_counts(point, normal, s_tab, e_tab, photons_t, radius,
+                       step=1 << 24):
+    """The hit-photon pairs of gather_flux, by how far a walk must take
+    each: (pairs, near, accepted), Python ints. pairs: every pair of the
+    hits' ranges; near: those with d^2 < r^2; accepted: those of them with
+    n . n_p > 1e-3, the pairs that add to a sum. In the kernel's float32
+    operations, `step` pairs at a time; for chip_smoke.py's bound."""
+    _, _, r2, _ = _radius_f32(radius)
+    ndot_min = float(np.float32(1e-3))
+    pairs = near = accepted = 0
+    for o in range(N_OFF):
+        s = s_tab[o].long()
+        length = (e_tab[o].long() - s).clamp(min=0)
+        ends = torch.cumsum(length, 0)
+        total = int(ends[-1]) if ends.numel() else 0
+        pairs += total
+        for p0 in range(0, total, step):
+            k = torch.arange(p0, min(p0 + step, total), device=point.device)
+            hit = torch.searchsorted(ends, k, right=True)
+            p = photons_t[0:6][:, s[hit] + k - (ends[hit] - length[hit])]
+            x, nrm = point[hit], normal[hit]
+            dx, dy, dz = p[0] - x[:, 0], p[1] - x[:, 1], p[2] - x[:, 2]
+            d2 = dx * dx + dy * dy + dz * dz
+            ndot = p[3] * nrm[:, 0] + p[4] * nrm[:, 1] + p[5] * nrm[:, 2]
+            close = d2 < float(r2)
+            near += int(close.sum())
+            accepted += int((close & (ndot > ndot_min)).sum())
+    return pairs, near, accepted
+
+
 def gather_flux(point, normal, s_tab, e_tab, photons_t, radius):
     """Cone-filter gather for n eye hits over their raster ranges (the JAX
     gather_flux_pallas; n % 1024 == 0, ideally sorted by the own_key of
@@ -422,12 +468,14 @@ def gather_flux(point, normal, s_tab, e_tab, photons_t, radius):
         raise ValueError(f"gather_flux: want n % {BLOCK} == 0 and photons; "
                          f"got n = {n}, {np_pad} photon columns")
     hits = torch.cat([point.T, normal.T]).contiguous()
+    order = warp_order(s_tab, e_tab)
     out = torch.empty(3, n, dtype=torch.float32, device=point.device)
     lib = _build.load()
     err = lib.pt_gather_flux(
         hits.data_ptr(), s_tab.data_ptr(), e_tab.data_ptr(),
         photons_t.data_ptr(), np_pad, float(_radius_f32(radius)[0]),
-        out.data_ptr(), n, torch.cuda.current_stream(point.device).cuda_stream)
+        order.data_ptr(), HEAVY, out.data_ptr(), n,
+        torch.cuda.current_stream(point.device).cuda_stream)
     _build.check(lib, err, "gather_flux")
     gather_flux.launches += 1
     return out.T

@@ -42,7 +42,14 @@ kernel and the raster-grid gather must equal their plain versions exactly;
 the two-kernel chain must equal the fused bounce kernel, and the
 fuse_bounce=False render the fused render, exactly. The clustered kernel
 finds the hits of intersect_spheres on every live lane; the raster gather
-sums the chunk gather's photons in another order (rtol 1e-4, atol 1e-6)."""
+sums the chunk gather's photons in another order (rtol 1e-4, atol 1e-6).
+
+The triangle kernel skips pad columns and pre-rejects pairs: it must equal
+its plain version on real columns scattered among pads (T = 45 and 1024),
+on each case its header names (tests/test_torch_tri_pads.py) and on the
+ganesha floor pool. The raster gather must equal its plain version on a
+range of ~19,000 photons, which its batched walk takes, and its
+branch-free square root must equal sqrtf on every finite float >= 0."""
 
 import os
 
@@ -268,6 +275,60 @@ def test_intersect_tris_kernel_matches_plain(dev):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert bool(got[2].any()) and not bool(got[2][1024:2048].any())
+
+
+def _tris_equal(table, org, d, alive):
+    before = tk.intersect_tris.launches
+    got = tk.intersect_tris(table, org, d, alive)
+    assert tk.intersect_tris.launches == before + 1
+    want = tk.intersect_tris_plain(table, org, d, alive)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_intersect_tris_kernel_on_scattered_pads(dev, seed):
+    """Real columns scattered among pads (T = 45), inf and NaN rays,
+    origins on a triangle's plane, a tie, a block with one live lane
+    (tests/test_torch_tri_pads.py); and the same real columns among 979
+    more pads (T = 1024: 48 KB of staged triangles at most)."""
+    from test_torch_tri_pads import REAL, scattered_case
+    table, org, d, alive = (torch.from_numpy(x).to(dev)
+                            for x in scattered_case(seed))
+    t, idx, hit = _tris_equal(table, org, d, alive)
+    assert bool(hit[:1024].any()) and bool(hit[1024:].any())
+    wide = torch.zeros(9, 1024, device=dev)
+    wide[0:3] = 0.5
+    wide[:, torch.tensor(REAL, device=dev) * 20 + 7] = table[:, REAL]
+    wt, widx, _ = _tris_equal(wide, org, d, alive)
+    assert torch.equal(wt, t)
+    assert torch.equal(widx, torch.where(hit, idx * 20 + 7, 0).int())
+
+
+def test_intersect_tris_kernel_on_named_cases(dev):
+    """Each case the kernel's header names, one 1024-ray block each."""
+    from test_torch_tri_pads import NAMED, named_case
+    alive = torch.ones(1024, dtype=torch.bool, device=dev)
+    for name, case in NAMED.items():
+        table, org, d = (x.to(dev) for x in named_case(name))
+        _, _, hit = _tris_equal(table, org.expand(1024, 3).contiguous(),
+                                d.expand(1024, 3).contiguous(), alive)
+        assert bool(hit[0]) == case[5], name
+
+
+def test_intersect_tris_kernel_on_the_ganesha_floor_pool(dev):
+    """The 2-triangle floor among 126 pads, rays from above it."""
+    from pathtracer_tpu_torch.models import ganesha
+    scene, _, _, _ = ganesha.build(
+        os.path.join(ROOT, "scenes", "test_ganesha.ply"), 1.0, dev)
+    tp = scene.tri_pack
+    table = tk.pack_tris(tp[:, TRI_A], tp[:, TRI_E1], tp[:, TRI_E2],
+                         scene.tri_valid)
+    assert table.shape[1] == 128 and int(scene.tri_valid.sum()) == 2
+    org, d, alive = _cornell_rays(dev, seed=3)
+    t, _, hit = _tris_equal(table, org * 100.0, d, alive)
+    assert bool(hit.any()) and not bool(hit[1024:2048].any())
 
 
 def test_gather_kernel_matches_plain(dev):
@@ -633,6 +694,95 @@ def test_gather_flux_kernel_matches_plain(dev):
                                    photons_c, r)
     assert float(got.abs().sum()) > 0
     assert torch.allclose(got, chunks, rtol=1e-4, atol=1e-6)
+
+
+def _long_range_args(dev):
+    """2,048 hits over 3,000 uniform photons and a cluster of 20,000 in one
+    grid cell: the hits near the cluster walk ranges of ~20,000 photons,
+    many tiles and a ragged last one, the others short ones."""
+    rng = np.random.default_rng(11)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    r = 0.05
+    pos = np.concatenate([rng.random((3000, 3)),
+                          0.5 + 0.01 * rng.random((20000, 3))])
+    nrm = rng.standard_normal(pos.shape)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    flux = rng.random(pos.shape)
+    point = rng.random((2048, 3))
+    point[:64] = 0.5 + 0.02 * rng.random((64, 3))
+    normal = rng.standard_normal((2048, 3))
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    f32 = lambda x: t(x.astype(np.float32))
+    tbl, start, count = gk.build_photon_grid_morton(
+        f32(pos), f32(nrm), f32(flux), t(rng.random(len(pos)) < 0.97),
+        f32(np.zeros(3)), r)
+    s, e, _ = gk.query_tables(f32(point), t(np.ones(2048, bool)),
+                              f32(np.zeros(3)), r, start, count)
+    assert int((e - s).max()) > 15000
+    return f32(point), f32(normal), s, e, tbl, r
+
+
+def test_gather_flux_kernel_on_one_very_long_range(dev):
+    """The raster gather on _long_range_args: the kernel against its plain
+    version."""
+    args = _long_range_args(dev)
+    got = gk.gather_flux(*args)
+    want = gk.gather_flux_plain(*args)
+    assert torch.equal(got, want), (got - want).abs().max()
+    assert float(got[:64].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("heavy", [0, 2 ** 31 - 1])
+def test_gather_flux_kernel_batched_or_not(dev, heavy, monkeypatch):
+    """Every warp walked in batches (HEAVY = 0), or none: the kernel still
+    equals its plain version on _long_range_args."""
+    monkeypatch.setattr(gk, "HEAVY", heavy)
+    args = _long_range_args(dev)
+    got = gk.gather_flux(*args)
+    assert torch.equal(got, gk.gather_flux_plain(*args))
+
+
+SQRT_CHECK = r"""
+#include <cuda_runtime.h>
+#include "sqrt_rn.cuh"
+
+__global__ void check(unsigned long long* bad) {
+  const unsigned long long k =
+      (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= 0x7f800000ull) return;  // every finite x >= +0
+  const float x = __uint_as_float((unsigned)k);
+  if (__float_as_uint(sqrtf(x)) !=
+      __float_as_uint(pt_sqrt::sqrt_nonneg(x)))
+    atomicAdd(bad, 1ull);
+}
+
+extern "C" int run(unsigned long long* bad) {
+  check<<<0x7f800000u / 256, 256>>>(bad);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def test_sqrt_nonneg_equals_sqrtf_on_every_float(dev, tmp_path):
+    """csrc/sqrt_rn.cuh's branch-free root (the raster gather's batches)
+    against sqrtf on all 2,139,095,040 finite non-negative floats, built
+    with the kernels' flags."""
+    import ctypes
+    import subprocess
+
+    from pathtracer_tpu_torch import _build
+    src, so = tmp_path / "sqrt_check.cu", tmp_path / "sqrt_check.so"
+    src.write_text(SQRT_CHECK)
+    subprocess.run([_build.nvcc_path(), *_build.FLAGS, "-shared", "-I",
+                    os.path.join(ROOT, "pathtracer_tpu_torch", "csrc"),
+                    "-o", str(so), str(src)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.run.argtypes = [ctypes.c_void_p]
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    assert lib.run(bad.data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert int(bad) == 0
 
 
 def test_new_wrappers_refuse_malformed_input(dev):

@@ -173,3 +173,50 @@ def test_gather_flux_refuses_other_devices():
         gk.gather_flux(m(1024, 3), m(1024, 3), m(9, 1024, dt=torch.int32),
                        m(9, 1024, dt=torch.int32), m(16, 128), 0.05)
     assert gk.gather_flux.launches == 0
+
+
+def test_warp_order_puts_the_longest_groups_first():
+    """warp_order is a permutation of the 32-hit groups, sorted by each
+    group's longest lane (its pairs over the 9 ranges), descending and
+    stable; a range with e < s counts as empty."""
+    rng = np.random.default_rng(7)
+    s = rng.integers(0, 1000, (gk.N_OFF, 4096)).astype(np.int32)
+    e = s + rng.integers(-3, 200, s.shape).astype(np.int32)
+    e[:, 64:96] = s[:, 64:96]  # a group of empty ranges
+    order = gk.warp_order(T(s), T(e)).numpy()
+    assert order.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(4096 // 32))
+    longest = np.maximum(e - s, 0).sum(axis=0).reshape(-1, 32).max(axis=1)
+    np.testing.assert_array_equal(
+        order, np.argsort(-longest, kind="stable").astype(np.int32))
+    assert order[-1] == 2 and longest[order[0]] == longest.max()
+
+
+def test_raster_pair_counts_match_a_brute_count():
+    """raster_pair_counts (chip_smoke.py's work count for the raster
+    gather's bound), in steps of 997 pairs, against a per-hit float32 count
+    over each range: all pairs, those with d^2 < r^2, and those of them
+    with n . n_p > 1e-3."""
+    point, normal, active, pos, nrm, flux, valid = _setup(
+        np.random.default_rng(4), 1024, 2000)
+    r = 0.07
+    tbl, start, count, glo, cell = ppm._build_grid_morton_device(
+        T(pos), T(nrm), T(flux), T(valid), r)
+    s, e, _ = gk.query_tables(T(point), T(active), glo, cell, start, count)
+    got = gk.raster_pair_counts(T(point), T(normal), s, e, tbl, r, step=997)
+    p = tbl.numpy()
+    r2 = np.float32(r) * np.float32(r)
+    want = [0, 0, 0]
+    for i in range(len(point)):
+        for o in range(gk.N_OFF):
+            j = np.arange(int(s[o, i]), int(e[o, i]))
+            dx, dy, dz = (p[c, j] - point[i, c] for c in range(3))
+            d2 = dx * dx + dy * dy + dz * dz
+            ndot = p[3, j] * normal[i, 0] + p[4, j] * normal[i, 1] \
+                + p[5, j] * normal[i, 2]
+            near = d2 < r2
+            want[0] += len(j)
+            want[1] += int(near.sum())
+            want[2] += int((near & (ndot > np.float32(1e-3))).sum())
+    assert list(got) == want
+    assert want[0] > want[1] > want[2] > 0

@@ -177,3 +177,23 @@ def test_wrappers_refuse_other_devices(tables):
         sk.intersect_spheres(tables["sph"].to("meta"), meta, meta, alive)
     with pytest.raises(ValueError, match="no kernel"):
         tk.intersect_tris(tables["tri"].to("meta"), meta, meta, alive)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scattered_pads_match_pallas(seed):
+    """The scattered-pad table of tests/test_torch_tri_pads.py (T = 45, real
+    columns among pads, inf and NaN rays, origins on a triangle's plane,
+    ties): the plain version over the whole table and the plain walk over
+    the real columns alone both equal the JAX kernel (T padded to 48 with
+    zero columns, as pack_tris_pallas pads), at the tolerances above."""
+    from test_torch_tri_pads import real_only, scattered_case
+    table, org, d, alive = scattered_case(seed)
+    w_t, w_idx, w_hit = (np.asarray(x) for x in jtk.intersect_tris_pallas(
+        jnp.asarray(np.pad(table, ((0, 0), (0, 3)))), jnp.asarray(org),
+        jnp.asarray(d), jnp.asarray(alive), interpret=True))
+    args = tuple(torch.from_numpy(x) for x in (table, org, d, alive))
+    for t, idx, hit in (tk.intersect_tris_plain(*args), real_only(*args)):
+        np.testing.assert_array_equal(idx.numpy(), w_idx)
+        np.testing.assert_array_equal(hit.numpy(), w_hit)
+        np.testing.assert_allclose(t.numpy(), w_t, rtol=1e-6)
+    assert w_hit.mean() > 0.3
