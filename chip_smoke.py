@@ -36,7 +36,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
      plain version on the bounce-1 rays of phase 3 (equal), then against
      intersect_spheres on the same rays (hit and at equal on every live
      lane, and on every lane with all lanes alive; idx mismatches printed),
-     with both kernels' times and the work its bound counts;
+     with both kernels' times; the kernel's walk from its plain emulation
+     (equal to the plain version): the blocks' surviving clusters, the
+     clusters each warp enters and the real pairs its lanes test (mean and
+     max), the lanes outside the warp skip's proof; its three bounds (the
+     block cull's work, the walked work, the brute force); the host ms of
+     its first cached_cluster_walk; and its device ms beside the device ms
+     before its redesign;
   5. CLI: `python -m pathtracer_tpu_torch shirley-spheres ...` writes a
      600x300 PNG (to chiprun_out/);
   6. PPM kernels: the photon mapper's three kernels against their plain
@@ -112,7 +118,8 @@ Each kernel's bound_ms in the JSON line is the larger of the bytes it must
 move over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
 from this run's inputs (OPS below); for the full-variant sphere loop
 (fused_bounce, intersect_state) that is the walk's node tests and pairs,
-with the brute force's bound beside it as bound_ms_brute. The clustered
+with the brute force's bound beside it as bound_ms_brute; for the
+clustered kernel the least of its three bounds. The clustered
 kernel and the raster gather are on no render path: their counts are set
 to 0 with the path's own before each of the four main-path renders (4, 4b,
 7, 11), read after it, and must stay 0.
@@ -197,7 +204,7 @@ FP32_OPS_PER_MS = 67e12 / 1e3
 # (13: d^2, n . n_p), a node row of bvh8_walk.cu (185: 9 for the ray's
 # frame, 8 children x 3 axes x 6 slab operations, 32 for the children's
 # min/max reductions), and a node test of the sphere hierarchy's walk in
-# pt_bounce.cuh (17).
+# pt_bounce.cuh or a grown-bound test of intersect_clustered.cu's walk (17).
 OPS = dict(sphere=20, fused_sphere=18, listed_sphere=9, cull=17, shade=300,
            shade_miss=17, tri=46, tri_det=14, tri_u=23, tri_vt=44,
            tile_tri=44, gather=22, gather_far=8, gather_near=13, node=185,
@@ -231,6 +238,10 @@ BEFORE_REDESIGN_MS = dict(intersect_tris_photon_b0=0.0356,
                           intersect_tris_cornell_iteration=0.652,
                           intersect_tris_ganesha_iteration=0.419,
                           gather_flux_events=1.8247)
+# ms of the clustered sphere kernel before its redesign for this card
+# (PERF.md, §6; NVIDIA H100 80GB HBM3, 700 W): shirley bounce-1 rays
+# against 178 clusters, profiler and CUDA events
+BEFORE_CLUSTERED_MS = dict(device=0.5489, events=0.9367)
 # list positions per gather work item tried by --sweep-seg
 SWEEP_SEGS = (4, 8, 16, 32, 64)
 # Kernel vs plain on the card: none. The kernels are built without FMA
@@ -406,6 +417,11 @@ def png_size(path: str) -> tuple[int, int]:
     return struct.unpack(">II", head[16:24])
 
 
+# {compare's name: the kernel's device ms per call in its last profile, or
+# None where the profile recorded none of its events}
+KERNEL_DEVICE_MS = {}
+
+
 def compare(torch, name, fn_k, fn_p, what, kernel, plain_reps=7,
             plain_batch=10, plain_prof=5, **fields):
     """Run a kernel wrapper and its plain version on the same inputs; print
@@ -424,6 +440,8 @@ def compare(torch, name, fn_k, fn_p, what, kernel, plain_reps=7,
     pms = time_ms(torch, fn_p, reps=plain_reps, batch=plain_batch)
     _, per, _, _ = device_times(torch, fn_k, reps=5)
     pdev, _, _, _ = device_times(torch, fn_p, reps=plain_prof)
+    KERNEL_DEVICE_MS[name] = (kernel_ms(per, kernel)
+                              if any(kernel in k for k in per) else None)
     phase(name, shape=what, equal=exact, max_abs_err=err, ms=f"{kms:.4f}",
           plain_ms=f"{pms:.4f}", device_ms=device_ms_field(per, kernel),
           wrapper_device_ms=f"{sum(per.values()):.4f}",
@@ -789,42 +807,96 @@ def clustered_work(torch, tables, org, d, alive, n_valid):
             "brute_force_ops": n_live * n_valid * OPS["sphere"]}
 
 
+def clustered_walk_work(torch, tables, walk, org, d, alive, want) -> dict:
+    """The redesigned kernel's walk on these rays, from its plain emulation
+    (sphere_kernel.intersect_clustered_walk_plain), which must equal the
+    plain version's outputs `want`: the surviving clusters of each live
+    block, the clusters each warp of a live block enters and the real pairs
+    each of its lanes tests (mean and max), the lanes outside the warp
+    skip's proof, and the walked work: each live lane's grown-bound tests
+    (its block's surviving clusters) and real pairs (its warp's)."""
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+
+    *got, st = sk.intersect_clustered_walk_plain(tables, walk, org, d, alive)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "the clustered walk's plain emulation differs from "
+            "intersect_clustered_plain")
+    live_blk = alive.reshape(-1, 1024).any(dim=1)
+    warps = live_blk.repeat_interleave(1024 // sk.WARP)
+    live_w = alive.reshape(-1, sk.WARP).sum(dim=1)
+    surv_w = st["surviving"].repeat_interleave(1024 // sk.WARP)
+    node_tests = int((live_w * surv_w).sum())
+    pairs = int((live_w * st["pairs"]).sum())
+    ent, prs, surv = (st["entered"][warps].float(), st["pairs"][warps],
+                      st["surviving"][live_blk].float())
+    return dict(
+        surviving_per_block_mean=round(float(surv.mean()), 3),
+        surviving_per_block_max=int(surv.max()),
+        entered_per_warp_mean=round(float(ent.mean()), 3),
+        entered_per_warp_max=int(ent.max()),
+        pairs_per_lane_mean=round(float(prs.float().mean()), 3),
+        pairs_per_lane_max=int(prs.max()),
+        uncovered_lanes=int(st["uncovered"].sum()),
+        walked_bound_tests=node_tests, walked_pairs=pairs,
+        walked_ops=node_tests * OPS["sphere_node"] + pairs * OPS["sphere"])
+
+
 def clustered_phase(torch, scene, sph_table, state):
     """Phase 4c: intersect_clustered on the rays of the bounce-1 `state`
-    against its plain version, then against intersect_spheres. Returns
-    (err, ms, plain_ms, bound dict, intersect_spheres ms)."""
+    against its plain version and its walk, then against
+    intersect_spheres. Returns (err, ms, plain_ms, bound dict with the
+    three bounds, intersect_spheres ms, the kernel's device ms)."""
     from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
 
     t0 = time.perf_counter()
     tables = sk.pack_spheres_clustered(scene.center, scene.radius,
                                        scene.valid)
     pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walk = sk.cached_cluster_walk(tables)  # the one the wrapper reads
+    walk_ms = (time.perf_counter() - t0) * 1e3
     org = state[0:3].reshape(3, -1).T.contiguous()
     d = state[3:6].reshape(3, -1).T.contiguous()
     alive = state[9].reshape(-1) > 0
     n, k = org.shape[0], tables[1].shape[1]
     work = clustered_work(torch, tables, org, d, alive,
                           int(scene.valid.sum()))
-    # bytes: the rays, alive and the outputs, the tables; operations: the
-    # least the function needs, the clustered or the brute-force count
-    c_bound = bound(n * (24 + 1 + 12) + sum(t.numel() * 4 for t in tables),
-                    min(work["clustered_ops"], work["brute_force_ops"]))
-    err, kms, pms, _ = compare(
+    err, kms, pms, want = compare(
         torch, "intersect_clustered",
         lambda: sk.intersect_clustered(tables, org, d, alive),
         lambda: sk.intersect_clustered_plain(tables, org, d, alive),
         f"bounce1:{n}_rays", kernel="intersect_clustered_kernel",
         plain_reps=1, plain_batch=1, plain_prof=1, clusters=k,
-        pack_s=f"{pack_s:.3f}", of_block_clusters=n // 1024 * k, **work)
+        pack_s=f"{pack_s:.3f}", walk_ms=f"{walk_ms:.3f}",
+        real_slots=walk.n_real, of_block_clusters=n // 1024 * k,
+        before_redesign_device_ms=BEFORE_CLUSTERED_MS["device"],
+        before_redesign_ms=BEFORE_CLUSTERED_MS["events"], **work)
+    dev_ms = KERNEL_DEVICE_MS["intersect_clustered"]
+    walked = clustered_walk_work(torch, tables, walk, org, d, alive, want)
+    # bytes: the rays, alive and the outputs, the tables and the walk's;
+    # operations: the block cull's work, the walked work, the brute force
+    # (each the function's work by one method); the bound is the least
+    n_bytes = (n * (24 + 1 + 12) + sum(t.numel() * 4 for t in tables)
+               + (walk.runs.numel() + walk.bounds.numel()) * 4)
+    three = {"block_cull": work["clustered_ops"],
+             "walked": walked["walked_ops"],
+             "brute": work["brute_force_ops"]}
+    bounds = {name: bound(n_bytes, ops) for name, ops in three.items()}
+    c_bound = dict(min(bounds.values(), key=lambda b: b["bound_ms"]),
+                   **{f"bound_ms_{name}": b["bound_ms"]
+                      for name, b in bounds.items()})
+    phase("clustered_walk", **walked,
+          **{f"bound_ms_{name}": f"{b['bound_ms']:.4f}"
+             for name, b in bounds.items()})
     ones = torch.ones_like(alive)
     mism = {}
     for label, mask in (("live", alive), ("all_alive", ones)):
         got = sk.intersect_clustered(tables, org, d, mask)
-        want = sk.intersect_spheres(sph_table, org, d, mask)
+        want_s = sk.intersect_spheres(sph_table, org, d, mask)
         lanes = mask if label == "live" else ones
-        hit_eq = torch.equal(got[2][lanes], want[2][lanes])
-        at_eq = torch.equal(got[0][lanes], want[0][lanes])
-        idx_ne = lanes & got[2] & (got[1] != want[1])
+        hit_eq = torch.equal(got[2][lanes], want_s[2][lanes])
+        at_eq = torch.equal(got[0][lanes], want_s[0][lanes])
+        idx_ne = lanes & got[2] & (got[1] != want_s[1])
         mism[label] = (hit_eq, at_eq, int(idx_ne.sum()))
     s_ms = time_ms(torch, lambda: sk.intersect_spheres(sph_table, org, d,
                                                        alive))
@@ -843,7 +915,7 @@ def clustered_phase(torch, scene, sph_table, state):
     require(all(h and a for h, a, _ in mism.values()),
             f"intersect_clustered's hits differ from intersect_spheres': "
             f"{mism}")
-    return err, kms, pms, c_bound, s_ms
+    return err, kms, pms, c_bound, s_ms, dev_ms
 
 
 def raster_design_readings(torch, gk, args, want) -> dict:
@@ -1981,8 +2053,8 @@ def main() -> None:
     # --- 4b. the two-kernel render; 4c. the clustered kernel --------------
     two_k_launches = two_kernel_render(torch, np, make_render_fn, scene, cam,
                                        bg, dev, img_t, segments, render, smi)
-    cl_err, cl_ms, cl_plain_ms, cl_bound, cl_spheres_ms = clustered_phase(
-        torch, scene, r.sph_table, fb_in[1])
+    (cl_err, cl_ms, cl_plain_ms, cl_bound, cl_spheres_ms,
+     cl_dev) = clustered_phase(torch, scene, r.sph_table, fb_in[1])
 
     # --- 5. CLI ----------------------------------------------------------
     os.makedirs(OUT, exist_ok=True)
@@ -2073,7 +2145,8 @@ def main() -> None:
         entry("intersect_clustered", "intersect_clustered.cu",
               "pallas/sphere_kernel.py:247", cl_err, cl_ms, cl_plain_ms,
               **cl_bound, shape="shirley bounce-1 rays, 194560 x 178 "
-              "clusters", path=None, intersect_spheres_ms=cl_spheres_ms),
+              "clusters", path=None, intersect_spheres_ms=cl_spheres_ms,
+              device_ms=cl_dev),
         raster,
     ]
     # the kernels on no path: their counts as read around each of the four

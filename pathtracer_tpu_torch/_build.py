@@ -54,8 +54,8 @@ _SIGNATURES = {
                            _I, _P, _P, _I, _I, _P],
     "pt_shade_state": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _U, _U, _U, _U,
                        _F, _F, _F, _F, _F, _F, _I, _I, _P],
-    "pt_intersect_clustered": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                               _P],
+    "pt_intersect_clustered": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+                               _P, _P, _I, _P],
     "pt_gather_flux": [_P, _P, _P, _P, _I, _F, _P, _I, _P, _I, _P],
 }
 

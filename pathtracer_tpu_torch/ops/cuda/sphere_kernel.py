@@ -279,8 +279,16 @@ def build_sphere_bvh(sph_table) -> SphereBVH:
 def cull_lanes(hier: SphereBVH, o, d, origin_zero: bool):
     """Each lane's conservative node test, in the kernel's arithmetic:
     (N, M) bool, True where the lane may hit a sphere under the node."""
+    return bound_votes(hier.nodes, o, d, origin_zero)
+
+
+def bound_votes(nodes, o, d, origin_zero: bool):
+    """The conservative test of rays (N,) against grown bounds nodes (M, 4)
+    [Cx, Cy, Cz, RL], in the arithmetic of csrc/pt_bounce.cuh and
+    csrc/intersect_clustered.cu: (N, M) bool, True where the lane may hit
+    a sphere under the bound, and everywhere for a lane outside the proof
+    (|d|^2 off 1 by more than DIR_TOL, |o|^2 not under ORG_Q_MAX, NaN)."""
     d0, d1, d2 = d
-    nodes = hier.nodes
     cx, cy, cz, rl = (nodes[:, c][None, :] for c in range(4))
     if origin_zero:
         w0, w1, w2 = cx, cy, cz
@@ -675,12 +683,165 @@ def intersect_clustered_plain(tables, org, d, alive):
     return best_at, perm[best_idx], best_at < BIG, inv_a
 
 
+class ClusterWalk(NamedTuple):
+    """The walk tables of csrc/intersect_clustered.cu, built on the host
+    once per table set (cluster_walk, kept by cached_cluster_walk). runs (K, 2) int32 [first, count]:
+    cluster c's real slots are c * CLUSTER + [0, count), every later slot of
+    it a pad word (0, 0, 0, -BIG), and the kernel stages them at positions
+    first + [0, count) (first: the counts' exclusive prefix sum). bounds
+    (K, 4) f32 [Cx, Cy, Cz, RL]: the bound of those slots' spheres, grown as
+    the sphere hierarchy's nodes are (_grown) and at least BOUND_FLOOR; RL
+    is inf where a slot is not finite or reaches past FAR, and the bound of
+    a cluster with no real slot is 0. n_real: the counts' sum."""
+    runs: torch.Tensor
+    bounds: torch.Tensor
+    n_real: int
+
+
+# least RL of a cluster's grown bound: lifts the warp skip's margins over
+# every subnormal rounding (the proof is in csrc/intersect_clustered.cu)
+BOUND_FLOOR = 2.0 ** -60
+
+
+def cluster_walk(tables) -> ClusterWalk:
+    """The ClusterWalk of pack_spheres_clustered's tables, on their device:
+    each cluster's real slots (up to its last word that is not a pad) and
+    the grown bound of their spheres, with the radius sqrt(A + |c|^2) that
+    the pair test's A implies (_sphere_radii)."""
+    sph, clus, _ = tables
+    k = clus.shape[1]
+    t = sph.detach().cpu().numpy()
+    c, r, _ = _sphere_radii(sph)
+    real = ~((t[0] == 0) & (t[1] == 0) & (t[2] == 0) & (t[3] == -BIG))
+    real = real.reshape(k, CLUSTER)
+    count = np.where(real.any(axis=1),
+                     CLUSTER - np.argmax(real[:, ::-1], axis=1), 0)
+    bounds = np.zeros((k, 4), np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for ci in range(k):
+            s = ci * CLUSTER + np.arange(count[ci])
+            if not len(s):
+                continue
+            if not (np.linalg.norm(c[s], axis=1) + r[s] < FAR).all():
+                bounds[ci, 3] = np.inf  # every lane enters
+                continue
+            grown = _grown(c, r, s)
+            bounds[ci] = grown[:3] + [max(grown[3], np.float32(BOUND_FLOOR))]
+    runs = np.stack([np.cumsum(count) - count, count], axis=1)
+    dev = sph.device
+    return ClusterWalk(torch.from_numpy(runs.astype(np.int32)).to(dev),
+                       torch.from_numpy(bounds).to(dev), int(count.sum()))
+
+
+def cached_cluster_walk(tables) -> ClusterWalk:
+    """cluster_walk(tables), built once per sphere table: kept on the
+    table tensor itself beside the tensor's version counter, so that an
+    in-place change of the table builds it anew and no other table reads
+    it. (The walk depends on the sphere table alone.) An inference
+    tensor has no version counter: its walk is built at every call."""
+    sph = tables[0]
+    if sph.is_inference():
+        return cluster_walk(tables)
+    kept = getattr(sph, "_cluster_walk", None)
+    if kept is None or kept[0] != sph._version:
+        kept = (sph._version, cluster_walk(tables))
+        sph._cluster_walk = kept
+    return kept[1]
+
+
+def intersect_clustered_walk_plain(tables, walk: ClusterWalk, org, d, alive):
+    """The walk of csrc/intersect_clustered.cu in plain PyTorch,
+    CLUSTER_PLAIN_BLOCKS blocks at a time: per 1024-ray block the clusters
+    that some live lane's cull test passes (the plain version's block
+    decision); per warp (WARP consecutive lanes) those of them whose grown
+    bound some lane, live or dead, may hit (bound_votes: a lane outside
+    the proof votes for all); per lane the real slots of the clusters its
+    warp enters, the first least candidate from (BIG, 0) in ascending slot
+    order. Equals intersect_clustered_plain wherever the kernel's proofs
+    hold. Returns (at, idx, hit, inv_a, stats): stats["surviving"] per block
+    its surviving clusters, stats["entered"] per warp the clusters it
+    enters, stats["pairs"] per warp the real pairs each of its lanes tests,
+    stats["uncovered"] per lane whether it lies outside the proof."""
+    sph, clus, perm = tables
+    runs, bounds, _ = walk
+    n, k = org.shape[0], clus.shape[1]
+    dev = org.device
+    o0, o1, o2 = org[:, 0], org[:, 1], org[:, 2]
+    d0, d1, d2 = d[:, 0], d[:, 1], d[:, 2]
+    od = o0 * d0 + o1 * d1 + o2 * d2
+    oq = o0 * o0 + o1 * o1 + o2 * o2
+    a = d0 * d0 + d1 * d1 + d2 * d2
+    inv_a = 1.0 / a
+    count = runs[:, 1].to(torch.int64)
+    real = (torch.arange(CLUSTER, device=dev).repeat(k)
+            < count.repeat_interleave(CLUSTER))  # (16 K,)
+    votes = bound_votes(bounds, (o0, o1, o2), (d0, d1, d2), False)
+    best_at = torch.empty_like(a)
+    best_idx = torch.empty(n, dtype=torch.int64, device=dev)
+    surviving = torch.empty(n // RAY_BLOCK, dtype=torch.int64, device=dev)
+    entered_n = torch.empty(n // WARP, dtype=torch.int64, device=dev)
+    pairs = torch.empty(n // WARP, dtype=torch.int64, device=dev)
+    ccx, ccy, ccz, cr2 = (clus[c][None, :] for c in range(4))
+    cx, cy, cz, a_s = (sph[c][None, :] for c in range(4))
+    step = CLUSTER_PLAIN_BLOCKS * RAY_BLOCK
+    per_blk = RAY_BLOCK // WARP
+    for lo in range(0, n, step):
+        sl = slice(lo, min(n, lo + step))
+        nb = (sl.stop - sl.start) // RAY_BLOCK
+        r0, r1, r2 = (x[sl, None] for x in (o0, o1, o2))
+        e0, e1, e2 = (x[sl, None] for x in (d0, d1, d2))
+        ra, rinv, rod, roq = (x[sl, None] for x in (a, inv_a, od, oq))
+        # the block decision: the plain version's cull, per cluster
+        fx, fy, fz = ccx - r0, ccy - r1, ccz - r2
+        fb = fx * e0 + fy * e1 + fz * e2
+        fq = fx * fx + fy * fy + fz * fz
+        perp2 = fq - fb * fb * rinv
+        may_hit = (((perp2 <= cr2) | (fq <= cr2))
+                   & (fb >= -vec.sqrt(cr2 * ra)) & alive[sl, None])
+        run = may_hit.reshape(nb, RAY_BLOCK, k).any(dim=1)  # (nb, K)
+        # the warp skip over the surviving clusters
+        entered = (votes[sl].reshape(nb * per_blk, WARP, k).any(dim=1)
+                   & run.repeat_interleave(per_blk, dim=0))  # (warps, K)
+        tested = (entered.repeat_interleave(WARP, dim=0)
+                  .repeat_interleave(CLUSTER, dim=1) & real[None, :])
+        # the pair test on every slot; untested slots give BIG
+        bp = cx * e0 + cy * e1 + cz * e2 - rod
+        g = a_s + 2.0 * (cx * r0 + cy * r1 + cz * r2) - roq
+        disc = g + bp * bp * rinv
+        sq = vec.sqrt(ra * disc)
+        inside_pos = (g >= 0.0) & (bp >= 0.0)
+        at = bp + torch.where(inside_pos, sq, -sq)
+        cand = torch.where((disc >= 0.0) & (at >= 0.0) & tested, at, BIG)
+        at_min, j = torch.min(cand, dim=1)
+        best_at[sl] = at_min
+        best_idx[sl] = torch.where(at_min < BIG, j, 0)
+        surviving[lo // RAY_BLOCK:lo // RAY_BLOCK + nb] = run.sum(dim=1)
+        ws = slice(lo // WARP, lo // WARP + nb * per_blk)
+        entered_n[ws] = entered.sum(dim=1)
+        pairs[ws] = (entered.long() * count[None, :]).sum(dim=1)
+    uncovered = ~(torch.abs(a - 1.0) <= DIR_TOL) | ~(oq <= ORG_Q_MAX)
+    stats = {"surviving": surviving, "entered": entered_n, "pairs": pairs,
+             "uncovered": uncovered}
+    return best_at, perm[best_idx], best_at < BIG, inv_a, stats
+
+
+def clustered_smem_bytes(k: int, n_real: int) -> int:
+    """Shared memory a CTA of csrc/intersect_clustered.cu takes: per
+    cluster its cull word, grown bound (16 B each) and run (8 B), 16 B per
+    real slot, and two mask words per 32 clusters. Within SMEM_MAX: K <= 784
+    when every cluster holds CLUSTER real spheres (K = 178 and 531 real
+    spheres, shirley's, take 15,664 B)."""
+    return 40 * k + 16 * n_real + 8 * (-(-k // 32))
+
+
 def intersect_clustered(tables, org, d, alive):
     """Nearest hit of N rays against the clustered tables of
     pack_spheres_clustered (the JAX intersect_clustered_pallas): the
     contract of intersect_spheres, with a per-1024-ray-block cull of each
     cluster by its bounding sphere. idx is an original sphere index (mapped
-    through perm); a miss is (BIG, perm[0]).
+    through perm); a miss is (BIG, perm[0]). The kernel reads the tables'
+    cached_cluster_walk beside them: host work at the first call on a
+    sphere table, kept for the later ones.
 
     CPU tensors run intersect_clustered_plain; CUDA tensors launch
     csrc/intersect_clustered.cu (counted in `intersect_clustered.launches`);
@@ -696,16 +857,22 @@ def intersect_clustered(tables, org, d, alive):
         ("sph_table", sph, torch.float32, (4, k * CLUSTER)),
         ("cluster_table", clus, torch.float32, (4, k)),
         ("perm", perm, torch.int32, (k * CLUSTER,))])
-    if not 0 < k <= 800:  # 17 float4 a cluster in 227 KB of shared memory
-        raise ValueError(f"intersect_clustered: want 0 < K <= 800 clusters, "
-                         f"got {k}")
+    if k == 0:
+        raise ValueError("intersect_clustered: want K > 0 clusters")
+    runs, bounds, n_real = cached_cluster_walk(tables)
+    smem = clustered_smem_bytes(k, n_real)
+    if smem > SMEM_MAX:
+        raise ValueError(f"intersect_clustered: {k} clusters with {n_real} "
+                         f"real slots take {smem} B of shared memory, more "
+                         f"than {SMEM_MAX} (K <= 784 with full clusters)")
     n = org.shape[0]
     lib = _build.load()
     at = torch.empty(n, dtype=torch.float32, device=org.device)
     idx = torch.empty(n, dtype=torch.int32, device=org.device)
     inv_a = torch.empty(n, dtype=torch.float32, device=org.device)
     err = lib.pt_intersect_clustered(
-        sph.data_ptr(), clus.data_ptr(), k, perm.data_ptr(), org.data_ptr(),
+        sph.data_ptr(), clus.data_ptr(), k, bounds.data_ptr(),
+        runs.data_ptr(), n_real, perm.data_ptr(), org.data_ptr(),
         d.data_ptr(), alive.data_ptr(), at.data_ptr(), idx.data_ptr(),
         inv_a.data_ptr(), n, torch.cuda.current_stream(org.device).cuda_stream)
     _build.check(lib, err, "intersect_clustered")

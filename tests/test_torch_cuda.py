@@ -41,7 +41,10 @@ The two-kernel bounce (intersect_state, shade_state), the clustered sphere
 kernel and the raster-grid gather must equal their plain versions exactly;
 the two-kernel chain must equal the fused bounce kernel, and the
 fuse_bounce=False render the fused render, exactly. The clustered kernel
-finds the hits of intersect_spheres on every live lane; the raster gather
+finds the hits of intersect_spheres on every live lane; it walks only real
+slots and skips clusters per warp, so its test also runs shuffled lanes,
+lanes outside the skip's proof (whose NaN inv_a is compared as equal) and
+784 full clusters, the wrapper's limit. The raster gather
 sums the chunk gather's photons in another order (rtol 1e-4, atol 1e-6).
 
 The triangle kernel skips pad columns and pre-rejects pairs: it must equal
@@ -635,37 +638,104 @@ def test_two_kernel_render_equals_fused_render(dev):
     assert segs0 == segs1 and torch.equal(img0, img1)
 
 
-def test_intersect_clustered_kernel_matches_plain(dev):
-    """Shirley's 178 clusters against 8,192 rays from the shirley camera
-    and from points near its spheres, with an all-dead block."""
-    scene, cam, _ = shirley.build(2.0, dev)
-    tables = sk.pack_spheres_clustered(scene.center, scene.radius,
-                                       scene.valid)
-    rng = np.random.default_rng(11)
-    n = 8192
+def _clustered_rays(dev, scene, cam, n, seed):
+    """n rays, half from the shirley camera at the origin, half from points
+    near its spheres, 85% alive, block 1 all dead."""
+    rng = np.random.default_rng(seed)
     cx, cy = (torch.from_numpy(rng.random(n, np.float32)).to(dev)
               for _ in range(2))
     d = cam.ray_dirs(cx, cy)
     c = scene.center[torch.from_numpy(rng.integers(0, 531, n)).to(dev)]
-    org = torch.where(torch.arange(n, device=dev)[:, None] < n // 2, 0.0,
+    first = torch.arange(n, device=dev)[:, None] < n // 2
+    org = torch.where(first, 0.0,
                       c + torch.from_numpy(rng.uniform(-2, 2, (n, 3))
                                            .astype(np.float32)).to(dev))
-    d = torch.where(torch.arange(n, device=dev)[:, None] < n // 2, d,
-                    torch.nn.functional.normalize(d + 0.3, dim=1))
+    d = torch.where(first, d, torch.nn.functional.normalize(d + 0.3, dim=1))
     alive = torch.from_numpy(rng.random(n) < 0.85).to(dev)
     alive[1024:2048] = False
-    args = (org.contiguous(), d.contiguous(), alive)
+    return org.contiguous(), d.contiguous(), alive
+
+
+def _full_cluster_tables(k, dev):
+    """k clusters of CLUSTER real spheres each (r in [0.02, 0.08], jittered
+    around a grid at z = -20), packed as pack_spheres_clustered packs them:
+    A = r^2 - |c|^2 and the circumsphere of each cluster's box, in float32
+    numpy; perm the identity."""
+    rng = np.random.default_rng(5)
+    side = int(np.ceil(np.sqrt(k)))
+    j = np.arange(k)
+    grid = np.stack([(j % side - side / 2) * 0.5, (j // side - side / 2) * 0.5,
+                     np.full(k, -20.0)], 1)
+    c = (grid[:, None, :] + rng.uniform(-0.15, 0.15, (k, sk.CLUSTER, 3))
+         ).astype(np.float32)
+    r = rng.uniform(0.02, 0.08, (k, sk.CLUSTER)).astype(np.float32)
+    sph = np.zeros((4, k * sk.CLUSTER), np.float32)
+    sph[:3] = c.reshape(-1, 3).T
+    sph[3] = (r * r - (c * c).sum(2)).reshape(-1)
+    blo = (c - r[..., None]).min(1)
+    bhi = (c + r[..., None]).max(1)
+    cc = 0.5 * (blo + bhi)
+    cr = np.linalg.norm(bhi - cc, axis=1).astype(np.float32)
+    clus = np.concatenate([cc.T, (cr * cr)[None, :]]).astype(np.float32)
+    perm = np.arange(k * sk.CLUSTER, dtype=np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (sph, clus, perm))
+
+
+@pytest.mark.parametrize("case", ["render_rays", "shuffled", "uncovered",
+                                  "k_limit"])
+def test_intersect_clustered_kernel_matches_plain(dev, case):
+    """Shirley's 178 clusters against 8,192 rays from the shirley camera
+    and from points near its spheres, with an all-dead block; the same
+    rays shuffled (the warp skip's worst case); with lanes outside the
+    warp skip's proof (NaN, inf, zero and non-unit directions, a far
+    origin); and 784 full clusters, the wrapper's limit with CLUSTER real
+    spheres each (785 are refused). Every output equal on every lane."""
+    scene, cam, _ = shirley.build(2.0, dev)
+    tables = sk.pack_spheres_clustered(scene.center, scene.radius,
+                                       scene.valid)
+    org, d, alive = _clustered_rays(dev, scene, cam, 8192, 11)
+    if case == "shuffled":
+        perm = torch.from_numpy(np.random.default_rng(2).permutation(8192))
+        org, d, alive = (x[perm.to(dev)].contiguous()
+                         for x in (org, d, alive))
+    elif case == "uncovered":
+        lanes = torch.arange(0, 8192, 97, device=dev)
+        d[lanes[0::6], 1] = float("nan")
+        d[lanes[1::6], 0] = float("inf")
+        d[lanes[2::6]] = 0.0
+        d[lanes[3::6]] *= 2.0
+        d[lanes[4::6]] *= 1.0 + 2.0 ** -13
+        org[lanes[5::6], 0] = 2.0 ** 51
+    elif case == "k_limit":
+        k = 784
+        tables = _full_cluster_tables(k, dev)
+        assert sk.cluster_walk(tables).n_real == k * sk.CLUSTER
+        assert (sk.clustered_smem_bytes(k, k * sk.CLUSTER) <= sk.SMEM_MAX
+                < sk.clustered_smem_bytes(k + 1, (k + 1) * sk.CLUSTER))
+        with pytest.raises(ValueError, match="shared memory"):
+            sk.intersect_clustered(_full_cluster_tables(k + 1, dev), org, d,
+                                   alive)
+        rng = np.random.default_rng(4)
+        aim = torch.from_numpy(rng.uniform(-8, 8, (8192, 3))
+                               .astype(np.float32)).to(dev)
+        aim[:, 2] = -20.0
+        d = torch.nn.functional.normalize(aim - org, dim=1).contiguous()
+    args = (org, d, alive)
     before = sk.intersect_clustered.launches
     got = sk.intersect_clustered(tables, *args)
     assert sk.intersect_clustered.launches == before + 1
     want = sk.intersect_clustered_plain(tables, *args)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    table = sk.pack_spheres(scene.center, scene.radius, scene.valid)
-    brute = sk.intersect_spheres(table, *args)
-    assert torch.equal(got[2][alive], brute[2][alive])
-    assert torch.equal(got[0][alive], brute[0][alive])
-    assert bool(got[2].any()) and not bool(got[2][1024:2048].any())
+    for g, w in zip(got, want):  # inv_a is NaN on NaN lanes in both
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    assert bool(got[2].any())
+    if case == "render_rays":
+        assert not bool(got[2][1024:2048].any())
+    if case in ("render_rays", "shuffled"):
+        table = sk.pack_spheres(scene.center, scene.radius, scene.valid)
+        brute = sk.intersect_spheres(table, *args)
+        assert torch.equal(got[2][alive], brute[2][alive])
+        assert torch.equal(got[0][alive], brute[0][alive])
 
 
 def test_gather_flux_kernel_matches_plain(dev):
