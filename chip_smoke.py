@@ -113,7 +113,25 @@ Phases, one line each; any failure raises and the script exits non-zero:
      iteration (table in chiprun_out/ganesha_profile.txt);
  12. ganesha CLIs: `ganesha ... -iterations 2` writes a 600x600 PNG,
      `ganesha -stop-after-bvh` prints the mesh's statistics, and
-     `ply-describe scenes/test_ganesha.ply` runs.
+     `ply-describe scenes/test_ganesha.ply` runs;
+ 13. path-traced ganesha: phase 9's floor, camera and MeshBVH under the
+     shirley sky (what models.ganesha.build_pt returns): the renderer's
+     flip_y tile table (its host seconds, columns, list mean and max);
+     intersect_tile_tris on pass 0's primaries over that table, the plain
+     version on 32 tiles (as in phase 10); bvh8_walk against its plain
+     version on pass 0's bounce-1 and bounce-3 rays (365,568 lanes leaving
+     the floor and the mesh), with steps per lane from the plain version's
+     count_steps, its times and bound; intersect_spheres and
+     intersect_tris against their plain versions on the bounce-1 rays;
+     then `600x600 spp=8 b=8` through make_render_fn(..., mesh=mesh): the
+     four kernels' launch counts (64, 64, 56, 8), the live lanes of each
+     bounce of pass 0, the segments within 0.1% of the reference's
+     (scenes/ref_ganesha_pt_600x600_spp8_b8.npz, JAX on the CPU; the TPU's
+     count printed beside), the image's RMSE and 8x8-binned RMSE as shares
+     of the reference's RMS (budgets below), the first render's seconds
+     and the median wall of 3 warm renders, a PNG, and one profiled
+     render's device busy, idle share and time by kernel with the walk's
+     device ms by bounce (chiprun_out/ganesha_pt_profile.txt).
 Each kernel's bound_ms in the JSON line is the larger of the bytes it must
 move over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
 from this run's inputs (OPS below); for the full-variant sphere loop
@@ -121,8 +139,9 @@ from this run's inputs (OPS below); for the full-variant sphere loop
 with the brute force's bound beside it as bound_ms_brute; for the
 clustered kernel the least of its three bounds. The clustered
 kernel and the raster gather are on no render path: their counts are set
-to 0 with the path's own before each of the four main-path renders (4, 4b,
-7, 11), read after it, and must stay 0.
+to 0 with the path's own before each of the five main-path renders (4, 4b,
+7, 11, 13), read after it, and must stay 0. The pool, gather and mesh
+kernels' launches sum their paths' renders (launches_by_path).
 Then a JSON line of kernel results, the nvidia-smi line, and the final
 `{"ok": true, "device": {...}}` line. Without a CUDA device, or without the
 package beside this script, it fails before printing any result.
@@ -183,6 +202,20 @@ GANESHA_WITNESS = os.path.join(ROOT, "scenes",
                                "ref_ganesha_600x600_it1_photons.npz")
 GANESHA_WITNESS_SHARE = 5e-3
 TILE_LONGEST = TILE_SPACED = 16  # tiles the plain tile kernel is held on
+# the path-traced ganesha: bench.py's `_run_ganesha_pt` configuration and
+# its JAX reference (tools/make_ganesha_pt_reference.py, XLA on the CPU)
+PT_SIZE, PT_SPP, PT_BOUNCES = 600, 8, 8
+GANESHA_PT_REF = os.path.join(ROOT, "scenes",
+                              "ref_ganesha_pt_600x600_spp8_b8.npz")
+GANESHA_PT_TPU_SEGMENTS = 7_827_580  # BENCH_r05, printed beside, not held
+PT_SEGMENT_SLACK = 1e-3  # segments, relative to the reference's
+# image budgets, as shares of the reference's RMS: the ganesha PPM's (a
+# path that an ulp turns across one of the mesh's edges changes its
+# pixel's sample; 8x8 means average such single samples out)
+GANESHA_PT_RMSE_SHARE = 2e-2
+GANESHA_PT_BINNED_SHARE = 5e-3
+PT_WALK_BOUNCES = (1, 3)  # bounces whose walk is held to its plain version
+PT_WARM_RENDERS = 3
 # The card's peaks for bound_ms (NVIDIA's H100 SXM data sheet): HBM 3.35
 # TB/s and 67 TFLOP/s of float32 outside the tensor cores.
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -394,6 +427,16 @@ def device_per_kernel(prof, reps: int):
                                                 / reps / 1e3)
             n_ops += e.count
     return sum(per.values()), per, n_ops / reps
+
+
+def launch_ms(prof, name: str) -> list:
+    """Device ms of each launch of the kernels whose name holds `name` in a
+    profile, in launch order."""
+    from torch.autograd import DeviceType
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and name in e.name),
+                    key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in events]
 
 
 def kernel_ms(per: dict, name: str) -> float:
@@ -1326,12 +1369,137 @@ def ppm_phases(torch, np, dev, smi):
     return kernels, launches, raster
 
 
+def tile_real_counts(np, ttk, tt):
+    """Each tile's real triangles in a TileTriTable: its columns before the
+    zero padding."""
+    real = np.flatnonzero((tt.table[3:9] != 0).any(axis=0))
+    return np.array([np.count_nonzero(
+        (real >= tt.tile_chunk_start[i] * ttk.CHUNK)
+        & (real < tt.tile_chunk_start[i + 1] * ttk.CHUNK))
+        for i in range(len(tt.tile_chunk_start) - 1)])
+
+
+def tile_kernel_check(torch, np, name, tt, tile, d, size):
+    """intersect_tile_tris on a table (TileTriTable tt, its tensors `tile`)
+    and the raster directions d of a band of whole tiles at width `size`:
+    the plain version on 32 tiles (the 16 with the longest lists and 16
+    spaced) against the kernel on the same tiles (the other tiles given the
+    zero chunk) and on all tiles, with times, work items (one per
+    256-triangle chunk) and the bound. Prints the `name` and `name`_full
+    lines; returns their numbers."""
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+
+    dev = d.device
+    rows = d.shape[0] // size
+    n_real = tile_real_counts(np, ttk, tt)
+    n_tiles = len(n_real)
+    longest = np.argsort(-n_real, kind="stable")[:TILE_LONGEST].tolist()
+    spaced = [t for t in np.linspace(0, n_tiles - 1, TILE_SPACED + 8)
+              .round().astype(int).tolist() if t not in longest]
+    tiles = sorted(longest + spaced[:TILE_SPACED])
+    # the checked tiles keep their lists, the others get the zero chunk:
+    # the kernel then computes the same tiles as the plain version
+    keep = np.isin(np.arange(n_tiles), tiles)
+    start = tt.tile_chunk_start
+    sub_src = np.concatenate([
+        tt.tile_chunk_src[start[t]:start[t + 1]] if keep[t]
+        else [tt.zero_chunk] for t in range(n_tiles)]).astype(np.int32)
+    sub_start = np.concatenate([[0], np.cumsum(
+        np.where(keep, np.diff(start), 1))]).astype(np.int32)
+    sub = (tile[0], torch.from_numpy(sub_start).to(dev),
+           torch.from_numpy(sub_src).to(dev))
+    err, ms_checked, plain_ms, want = compare(
+        torch, name, lambda: ttk.intersect_tile_tris(*sub, d, size),
+        lambda: ttk.intersect_tile_tris_plain(*sub, d, size, tiles=tiles),
+        f"{len(tiles)}_of_{n_tiles}_tiles", kernel="intersect_tile_tris",
+        plain_reps=2, plain_batch=1, plain_prof=1,
+        list_lengths=json.dumps(n_real[tiles].tolist()))
+    full = ttk.intersect_tile_tris(*tile, d, size)
+    y, x = np.divmod(np.arange(rows * size), size)
+    mine = torch.from_numpy(keep[(y // ttk.TILE) * tt.tx_n
+                                 + x // ttk.TILE]).to(dev)
+    require(all(torch.equal(f[mine], w[mine]) for f, w in zip(full, want)),
+            f"{name}: the full-size tile kernel differs from the plain "
+            "version on the checked tiles")
+    t_ms = time_ms(torch, lambda: ttk.intersect_tile_tris(*tile, d, size))
+    _, per, _, _ = device_times(
+        torch, lambda: ttk.intersect_tile_tris(*tile, d, size), reps=5)
+    # pairs: each tile's real triangles x its pixels inside the image
+    tw = np.minimum(ttk.TILE, size - (np.arange(n_tiles) % tt.tx_n)
+                    * ttk.TILE)
+    th = np.minimum(ttk.TILE, tt.height - (np.arange(n_tiles) // tt.tx_n)
+                    * ttk.TILE)
+    pairs = int((n_real * tw * np.maximum(th, 0)).sum())
+    t_bound = bound(d.numel() * 4 + rows * size * 16
+                    + int(n_real.sum()) * 10 * 4 + tile[1].numel() * 4
+                    + tile[2].numel() * 4, pairs * OPS["tile_tri"])
+    items = len(tt.tile_chunk_src)
+    phase(f"{name}_full", rays=rows * size, tiles=n_tiles, pairs=pairs,
+          items=items, ms=f"{t_ms:.4f}",
+          device_ms=device_ms_field(per, "intersect_tile_tris"),
+          items_kernel_ms=device_ms_field(per, "intersect_tile_tris_items"),
+          combine_kernel_ms=device_ms_field(per,
+                                            "intersect_tile_tris_combine"),
+          before_split_device_ms=BEFORE_SPLIT_MS["tile"],
+          wrapper_device_ms=f"{sum(per.values()):.4f}",
+          bound_ms=f"{t_bound['bound_ms']:.4f}",
+          hits=int((full[0] < ttk.BIG).sum()))
+    return dict(err=err, ms_checked=ms_checked, plain_ms=plain_ms, ms=t_ms,
+                device_ms=(kernel_ms(per, "intersect_tile_tris") if any(
+                    "intersect_tile_tris" in k for k in per) else None),
+                bound=t_bound, items=items, n_real=n_real, tiles=tiles,
+                full=full)
+
+
+def recorded_walks(mesh, run):
+    """The inputs (org, d, t_max0, active) of each mesh.intersect call (the
+    BVH8 walk) that run() makes, cloned, in call order."""
+    walk_in, walk = [], mesh.intersect
+
+    def record(org, d, t_max0, active):
+        walk_in.append(tuple(x.clone() for x in (org, d, t_max0, active)))
+        return walk(org, d, t_max0, active)
+
+    mesh.intersect = record
+    try:
+        run()
+    finally:
+        del mesh.intersect
+    return walk_in
+
+
+def walk_work(torch, bw, args):
+    """The plain BVH8 walk on args with its step counts: (its outputs, the
+    phase fields: active lanes, steps per active lane (mean, max), node and
+    pair steps, table rows read and bound_ms; the bound). The bound's bytes
+    are the table rows read, the rays (29 B) and results (17 B); its
+    operations each node row's and each pair row's tests (OPS)."""
+    *want, steps, visited = bw.bvh8_walk_plain(*args, count_steps=True)
+    active = args[4]
+    lane_steps = steps.sum(dim=1)[active].float()
+    w_bound = bound(int(visited.sum()) * 128 + active.numel() * (29 + 17),
+                    int(steps[:, 0].sum()) * OPS["node"]
+                    + int(steps[:, 1].sum()) * 2 * OPS["tri"])
+    fields = dict(
+        active=int(active.sum()), lanes_per_ray=bw.LANES_PER_RAY,
+        steps_mean=f"{float(lane_steps.mean()):.2f}",
+        steps_max=int(lane_steps.max()),
+        node_steps=int(steps[:, 0].sum()),
+        pair_steps=int(steps[:, 1].sum()),
+        rows_read=int(visited.sum()),
+        bound_ms=f"{w_bound['bound_ms']:.4f}")
+    return want, fields, w_bound
+
+
 def mesh_phases(torch, np, dev, smi):
-    """Phases 9-12: the ganesha mesh, its two kernels against their plain
-    versions, the ganesha render and its CLIs. Returns (kernel JSON entries
-    without launches, launch counts of the render's five kernels)."""
+    """Phases 9-13: the ganesha mesh, its two kernels against their plain
+    versions, the ganesha render and its CLIs, the path-traced ganesha.
+    Returns (kernel JSON entries without launches, launch counts of the
+    ganesha render's five kernels, of the path-traced render's four, and
+    phase 13's numbers for the JSON entries)."""
     rend, kernels = mesh_kernel_phases(torch, np, dev)
-    return kernels, ganesha_phases(torch, np, smi, rend)
+    launches = ganesha_phases(torch, np, smi, rend)
+    return (kernels, launches, *ganesha_pt_phases(torch, np, smi, rend))
 
 
 def mesh_kernel_phases(torch, np, dev):
@@ -1360,12 +1528,7 @@ def mesh_kernel_phases(torch, np, dev):
     tile = rend.tile_tensors(1)
     tile_s = time.perf_counter() - t0
     tt = rend.tile_table
-    # each tile's real triangles (its columns before the zero padding)
-    real = np.flatnonzero((tt.table[3:9] != 0).any(axis=0))
-    n_real = np.array([np.count_nonzero(
-        (real >= tt.tile_chunk_start[i] * ttk.CHUNK)
-        & (real < tt.tile_chunk_start[i + 1] * ttk.CHUNK))
-        for i in range(len(tt.tile_chunk_start) - 1)])
+    n_real = tile_real_counts(np, ttk, tt)
     phase("mesh", triangles=mesh.n_tris, depth=mesh.depth,
           walk_table_rows=mesh.table_np.shape[0], node_end=mesh.node_end,
           stride=mesh.stride, gpp_build_s=f"{gpp_s:.3f}",
@@ -1379,16 +1542,7 @@ def mesh_kernel_phases(torch, np, dev):
     # the walk's inputs as iteration 1's photon pass makes them (org, d, the
     # pool winner's t as t_max0, alive), bounces 0 and 1
     trace, _, _ = ppm.make_photon_pass(scene, lights, photons, bounces, mesh)
-    walk_in = []
-    walk = mesh.intersect
-
-    def record(org, d, t_max0, active):
-        walk_in.append(tuple(x.clone() for x in (org, d, t_max0, active)))
-        return walk(org, d, t_max0, active)
-
-    mesh.intersect = record
-    trace(0)
-    del mesh.intersect
+    walk_in = recorded_walks(mesh, lambda: trace(0))
     require(len(walk_in) == bounces
             and walk_in[0][0].shape[0] == -(-photons // 1024) * 1024,
             f"walk calls {len(walk_in)}")
@@ -1399,21 +1553,8 @@ def mesh_kernel_phases(torch, np, dev):
         org, d, t_max0, active = walk_in[b]
         args = (mesh.table, org, d, t_max0, active, mesh.node_end,
                 mesh.stride)
-        *want, steps, visited = bw.bvh8_walk_plain(*args, count_steps=True)
-        n, n_act = org.shape[0], int(active.sum())
-        lane_steps = steps.sum(dim=1)[active].float()
-        # bytes: the table rows read, the rays (29 B) and results (17 B)
-        w_bound = bound(int(visited.sum()) * 128 + n * (29 + 17),
-                        int(steps[:, 0].sum()) * OPS["node"]
-                        + int(steps[:, 1].sum()) * 2 * OPS["tri"])
-        fields = dict(
-            active=n_act, lanes_per_ray=bw.LANES_PER_RAY,
-            steps_mean=f"{float(lane_steps.mean()):.2f}",
-            steps_max=int(lane_steps.max()),
-            node_steps=int(steps[:, 0].sum()),
-            pair_steps=int(steps[:, 1].sum()),
-            rows_read=int(visited.sum()),
-            bound_ms=f"{w_bound['bound_ms']:.4f}")
+        want, fields, w_bound = walk_work(torch, bw, args)
+        n = org.shape[0]
         if b == 0:
             fields["before_group_device_ms"] = BEFORE_CULL_MS["bvh8_walk"]
         _, per, _, _ = device_times(torch, lambda: bw.bvh8_walk(*args),
@@ -1452,67 +1593,14 @@ def mesh_kernel_phases(torch, np, dev):
             kernel="intersect_tris_kernel",
             **tri_skips(torch, tk, floor, *fargs))
 
-    # the eye primaries of iteration 1, one band of ceil(H/32)*32 rows; the
-    # plain version on the 16 tiles with the longest lists and 16 spaced
+    # the eye primaries of iteration 1, one band of ceil(H/32)*32 rows
     eye = ppm.make_eye_pass(cam, size, size, bounces, photons, scene, 1,
                             mesh, tile)
     rows = -(-size // ttk.TILE) * ttk.TILE
     d = eye.primary(0)[2][:rows * size].contiguous()
-    n_tiles = len(n_real)
-    longest = np.argsort(-n_real, kind="stable")[:TILE_LONGEST].tolist()
-    spaced = [t for t in np.linspace(0, n_tiles - 1, TILE_SPACED + 8)
-              .round().astype(int).tolist() if t not in longest]
-    tiles = sorted(longest + spaced[:TILE_SPACED])
-    # the checked tiles keep their lists, the others get the zero chunk:
-    # the kernel then computes the same tiles as the plain version
-    keep = np.isin(np.arange(n_tiles), tiles)
-    start = tt.tile_chunk_start
-    sub_src = np.concatenate([
-        tt.tile_chunk_src[start[t]:start[t + 1]] if keep[t]
-        else [tt.zero_chunk] for t in range(n_tiles)]).astype(np.int32)
-    sub_start = np.concatenate([[0], np.cumsum(
-        np.where(keep, np.diff(start), 1))]).astype(np.int32)
-    sub = (tile[0], torch.from_numpy(sub_start).to(dev),
-           torch.from_numpy(sub_src).to(dev))
-    err_t, t_ms_sub, t_plain_ms, want = compare(
-        torch, "intersect_tile_tris",
-        lambda: ttk.intersect_tile_tris(*sub, d, size),
-        lambda: ttk.intersect_tile_tris_plain(*sub, d, size, tiles=tiles),
-        f"{len(tiles)}_of_{n_tiles}_tiles", kernel="intersect_tile_tris",
-        plain_reps=2, plain_batch=1, plain_prof=1,
-        list_lengths=json.dumps(n_real[tiles].tolist()))
-    full = ttk.intersect_tile_tris(*tile, d, size)
-    y, x = np.divmod(np.arange(rows * size), size)
-    mine = torch.from_numpy(keep[(y // ttk.TILE) * tt.tx_n
-                                 + x // ttk.TILE]).to(dev)
-    require(all(torch.equal(f[mine], w[mine]) for f, w in zip(full, want)),
-            "the full-size tile kernel differs from the plain version on "
-            "the checked tiles")
-    t_ms = time_ms(torch, lambda: ttk.intersect_tile_tris(*tile, d, size))
-    _, per, _, _ = device_times(
-        torch, lambda: ttk.intersect_tile_tris(*tile, d, size), reps=5)
-    # pairs: each tile's real triangles x its pixels inside the image
-    tw = np.minimum(ttk.TILE, size - (np.arange(n_tiles) % tt.tx_n)
-                    * ttk.TILE)
-    th = np.minimum(ttk.TILE, size - (np.arange(n_tiles) // tt.tx_n)
-                    * ttk.TILE)
-    pairs = int((n_real * tw * np.maximum(th, 0)).sum())
-    real_cols = int(n_real.sum())
-    t_bound = bound(d.numel() * 4 + rows * size * 16
-                    + real_cols * 10 * 4 + tile[1].numel() * 4
-                    + tile[2].numel() * 4, pairs * OPS["tile_tri"])
-    # the work items: one per chunk of the CSR
-    items = len(tt.tile_chunk_src)
-    phase("intersect_tile_tris_full", rays=rows * size, tiles=n_tiles,
-          pairs=pairs, items=items, ms=f"{t_ms:.4f}",
-          device_ms=device_ms_field(per, "intersect_tile_tris"),
-          items_kernel_ms=device_ms_field(per, "intersect_tile_tris_items"),
-          combine_kernel_ms=device_ms_field(per,
-                                            "intersect_tile_tris_combine"),
-          before_split_device_ms=BEFORE_SPLIT_MS["tile"],
-          wrapper_device_ms=f"{sum(per.values()):.4f}",
-          bound_ms=f"{t_bound['bound_ms']:.4f}",
-          hits=int((full[0] < ttk.BIG).sum()))
+    tile_res = tile_kernel_check(torch, np, "intersect_tile_tris", tt, tile,
+                                 d, size)
+    n_tiles = len(tile_res["n_real"])
 
     kernels = [
         entry("bvh8_walk", "bvh8_walk.cu", "bvh.py:892", *walk_times[0],
@@ -1524,13 +1612,12 @@ def mesh_kernel_phases(torch, np, dev):
               ms_bounce1=walk_times[1][1], plain_ms_bounce1=walk_times[1][2],
               bound_ms_bounce1=walk_bounds[1]["bound_ms"]),
         entry("intersect_tile_tris", "intersect_tile_tris.cu",
-              "pallas/tile_tri_kernel.py:142", err_t, t_ms, t_plain_ms,
-              **t_bound, shape=f"ganesha eye primaries, all {n_tiles} tiles "
-              f"(ms, bound_ms); {len(tiles)} tiles (plain_ms, "
-              "ms_checked_tiles)", ms_checked_tiles=t_ms_sub,
-              device_ms=(kernel_ms(per, "intersect_tile_tris") if any(
-                  "intersect_tile_tris" in k for k in per) else None),
-              items=items),
+              "pallas/tile_tri_kernel.py:142", tile_res["err"],
+              tile_res["ms"], tile_res["plain_ms"], **tile_res["bound"],
+              shape=f"ganesha eye primaries, all {n_tiles} tiles "
+              f"(ms, bound_ms); {len(tile_res['tiles'])} tiles (plain_ms, "
+              "ms_checked_tiles)", ms_checked_tiles=tile_res["ms_checked"],
+              device_ms=tile_res["device_ms"], items=tile_res["items"]),
     ]
     return rend, kernels
 
@@ -1687,6 +1774,216 @@ def ganesha_phases(torch, np, smi, rend):
             f"ply-describe said {said['ply_describe'][1][:1]}")
 
     return launches
+
+
+def ganesha_pt_phases(torch, np, smi, ppm_rend):
+    """Phase 13: the path-traced ganesha (models.ganesha.build_pt's scene)
+    on phase 9's floor, camera and MeshBVH under the shirley sky. Returns
+    (the render's launch counts of its four kernels, the numbers the
+    kernels' JSON entries take from this phase)."""
+    from pathtracer_tpu_torch.integrator import MeshRenderer, make_render_fn
+    from pathtracer_tpu_torch.io.png import write_png
+    from pathtracer_tpu_torch.models import shirley
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+    from pathtracer_tpu_torch.ops.cuda import tri_kernel as tk
+    from pathtracer_tpu_torch.scene import TRI_A, TRI_E1, TRI_E2
+
+    size, spp, bounces = PT_SIZE, PT_SPP, PT_BOUNCES
+    scene, cam, mesh = ppm_rend.scene, ppm_rend.camera, ppm_rend.mesh
+    bg, dev = shirley.BACKGROUND, scene.center.device
+    # --- 13. the flip_y tile table, built by the renderer ------------------
+    t0 = time.perf_counter()
+    r = MeshRenderer(scene, cam, bg, size, size, spp, bounces, dev, mesh)
+    table_s = time.perf_counter() - t0
+    tt = r.tile_table
+    n_real = tile_real_counts(np, ttk, tt)
+    phase("ganesha_pt_table", flip_y=True, backface_cull=mesh.watertight,
+          renderer_s=f"{table_s:.3f}", tile_columns=tt.table.shape[1],
+          tiles=len(n_real), list_mean=f"{n_real.mean():.2f}",
+          list_max=int(n_real.max()), chunks=int(tt.tile_chunk_start[-1]),
+          lanes=r.lane.shape[0])
+
+    # the tile kernel on pass 0's primaries over the flipped table
+    _, _, d0, _ = r.primary(0)
+    tile = (r.tile, r.tile_start, r.tile_src)
+    tile_res = tile_kernel_check(torch, np, "intersect_tile_tris_pt", tt,
+                                 tile, d0[:r.rows * size].contiguous(), size)
+
+    # pass 0's walk inputs at bounces 1-7 (bounce 0 takes the tile kernel):
+    # rays leaving the floor and the mesh in every direction
+    walk_in = recorded_walks(mesh, lambda: r.trace_pass(0))
+    require(len(walk_in) == bounces - 1, f"walk calls {len(walk_in)}")
+    live = [int(r.alive0.sum())] + [int(w[3].sum()) for w in walk_in]
+    pt = {}
+    for b in PT_WALK_BOUNCES:
+        args = (mesh.table, *walk_in[b - 1], mesh.node_end, mesh.stride)
+        t0 = time.perf_counter()
+        want, fields, w_bound = walk_work(torch, bw, args)
+        plain_s = time.perf_counter() - t0
+        got = bw.bvh8_walk(*args)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        kms = time_ms(torch, lambda: bw.bvh8_walk(*args))
+        _, per, _, _ = device_times(torch, lambda: bw.bvh8_walk(*args),
+                                    reps=5)
+        dev_ms = (kernel_ms(per, "bvh8_walk_kernel") if any(
+            "bvh8_walk_kernel" in k for k in per) else None)
+        phase("bvh8_walk_pt", shape=f"pt_b{b}:{args[1].shape[0]}_lanes",
+              equal=exact, ms=f"{kms:.4f}",
+              device_ms=device_ms_field(per, "bvh8_walk_kernel"),
+              plain_count_steps_s=f"{plain_s:.3f}",
+              bound_by=w_bound["bound_by"], hits=int(got[4].sum()),
+              **fields)
+        require(exact, f"bvh8_walk (path-traced bounce {b}): the kernel "
+                "differs from its plain version")
+        pt[f"walk_b{b}"] = dict(ms=kms, device_ms=dev_ms,
+                                bound_ms=w_bound["bound_ms"],
+                                bound_by=w_bound["bound_by"],
+                                steps_max=fields["steps_max"])
+
+    # the pool kernels on the bounce-1 rays
+    org, d, _, alive = walk_in[0]
+    pargs = (org.contiguous(), d.contiguous(), alive)
+    sph = sk.pack_spheres(scene.center, scene.radius, scene.valid)
+    tp = scene.tri_pack
+    floor = tk.pack_tris(tp[:, TRI_A], tp[:, TRI_E1], tp[:, TRI_E2],
+                         scene.tri_valid)
+    # bounds as phase 6 counts them: the rays in, the outputs, the table
+    n, n_alive = org.shape[0], int(alive.sum())
+    skips = tri_skips(torch, tk, floor, *pargs)
+    s_bound = bound(n * (25 + 12) + sph.numel() * 4,
+                    n_alive * int(scene.valid.sum()) * OPS["sphere"])
+    t_bound = bound(n * (25 + 8) + floor.numel() * 4, skips["ops"])
+    pt["spheres_b1"] = (compare(
+        torch, "intersect_spheres", lambda: sk.intersect_spheres(sph, *pargs),
+        lambda: sk.intersect_spheres_plain(sph, *pargs),
+        f"pt_b1:{n}x{sph.shape[1]}", kernel="intersect_spheres_kernel",
+        plain_reps=2, plain_batch=1, plain_prof=1,
+        bound_ms=f"{s_bound['bound_ms']:.4f}",
+        bound_by=s_bound["bound_by"])[1], s_bound["bound_ms"])
+    pt["tris_b1"] = (compare(
+        torch, "intersect_tris", lambda: tk.intersect_tris(floor, *pargs),
+        lambda: tk.intersect_tris_plain(floor, *pargs),
+        f"pt_b1:{n}x{floor.shape[1]}", kernel="intersect_tris_kernel",
+        plain_reps=2, plain_batch=1, plain_prof=1, **skips,
+        bound_ms=f"{t_bound['bound_ms']:.4f}",
+        bound_by=t_bound["bound_by"])[1], t_bound["bound_ms"])
+
+    # --- the render through make_render_fn(..., mesh=mesh) ----------------
+    render = make_render_fn(cam, bg, size, size, spp, bounces, dev,
+                            mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render(scene)  # the first render builds its tile table
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counters = {"intersect_spheres": sk.intersect_spheres,
+                "intersect_tris": tk.intersect_tris,
+                "bvh8_walk": bw.bvh8_walk,
+                "intersect_tile_tris": ttk.intersect_tile_tris,
+                **no_path_kernels()}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    img_t, segments = render(scene)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    read_no_path("ganesha_pt", launches)
+    for _ in range(PT_WARM_RENDERS - 1):
+        t0 = time.perf_counter()
+        render(scene)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    img = img_t.cpu().numpy().astype(np.float64)
+    ref = np.load(GANESHA_PT_REF)
+    ref_img = ref["img"].astype(np.float64)
+    require(img.shape == ref_img.shape == (size, size, 3),
+            f"image shape {img.shape}")
+    require(bool(np.isfinite(img).all()), "image has non-finite pixels")
+    ref_segs = int(ref["segments"])
+    rmse = float(np.sqrt(np.mean((img - ref_img) ** 2)))
+    ref_rms = float(np.sqrt(np.mean(ref_img ** 2)))
+    binned = [x.reshape(size // 8, 8, size // 8, 8, 3).mean(axis=(1, 3))
+              for x in (img, ref_img)]
+    b_share = (float(np.sqrt(np.mean((binned[0] - binned[1]) ** 2)))
+               / float(np.sqrt(np.mean(binned[1] ** 2))))
+    want_launches = {"intersect_spheres": spp * bounces,
+                     "intersect_tris": spp * bounces,
+                     "bvh8_walk": spp * (bounces - 1),
+                     "intersect_tile_tris": spp}
+    wall_s = statistics.median(walls)
+    os.makedirs(OUT, exist_ok=True)
+    png = os.path.join(OUT, f"ganesha_pt_{size}x{size}_spp{spp}.png")
+    write_png(png, img)
+    phase("ganesha_pt_render",
+          config=f"{size}x{size},spp={spp},b={bounces}", segments=segments,
+          reference_segments=ref_segs, tpu_segments=GANESHA_PT_TPU_SEGMENTS,
+          segments_rel_err=f"{abs(segments - ref_segs) / ref_segs:.3e}",
+          live_lanes_pass0=json.dumps(live),
+          first_render_s=f"{first_s:.4f}", wall_s=f"{wall_s:.4f}",
+          walls_s=json.dumps([round(w, 4) for w in walls]),
+          mrays_per_s=f"{segments / wall_s / 1e6:.3f}", rmse=f"{rmse:.6e}",
+          rmse_share_of_rms=f"{rmse / ref_rms:.4e}",
+          rmse_budget_share=GANESHA_PT_RMSE_SHARE,
+          binned8_rmse_share=f"{b_share:.4e}",
+          binned8_budget_share=GANESHA_PT_BINNED_SHARE,
+          max_abs_diff=f"{float(np.abs(img - ref_img).max()):.6e}",
+          pixels_off_by_1e_2=int((np.abs(img - ref_img).max(axis=-1)
+                                  > 1e-2).sum()),
+          png=os.path.relpath(png, ROOT), launches=json.dumps(launches),
+          gpu=json.dumps(smi))
+    require(launches == want_launches,
+            f"path-traced ganesha launches {launches}, want {want_launches}")
+    require(abs(segments - ref_segs) <= PT_SEGMENT_SLACK * ref_segs,
+            f"segments {segments} vs the reference's {ref_segs}")
+    require(rmse <= GANESHA_PT_RMSE_SHARE * ref_rms,
+            f"path-traced ganesha RMSE share {rmse / ref_rms} > "
+            f"{GANESHA_PT_RMSE_SHARE}")
+    require(b_share <= GANESHA_PT_BINNED_SHARE,
+            f"path-traced ganesha 8x8-binned RMSE share {b_share} > "
+            f"{GANESHA_PT_BINNED_SHARE}")
+
+    # one profiled render: device time by kernel, the idle share of its own
+    # wall, and the walk's device ms by bounce (its launches in order are
+    # pass-major: bounces 1-7 of each pass)
+    with profiler() as prof:
+        t0 = time.perf_counter()
+        render(scene)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, per, n_ops = device_per_kernel(prof, 1)
+    walk_events = launch_ms(prof, "bvh8_walk_kernel")
+    by_bounce = None  # where the profiler missed a launch
+    if len(walk_events) == spp * (bounces - 1):
+        by_bounce = [round(float(np.mean(walk_events[b::bounces - 1])), 4)
+                     for b in range(bounces - 1)]
+    top = sorted(per.items(), key=lambda kv: -kv[1])
+    with open(os.path.join(OUT, "ganesha_pt_profile.txt"), "w") as f:
+        f.write(f"{smi}\nwall_ms(profiled render)={prof_wall_ms:.3f} "
+                f"wall_ms(unprofiled median)={wall_s * 1e3:.3f} "
+                f"device_busy_ms={busy_ms:.3f} device_ops={n_ops:.0f}\n"
+                f"bvh8_walk device ms by bounce 1-{bounces - 1} (mean of "
+                f"{spp} passes)={json.dumps(by_bounce)}\n")
+        f.writelines(f"{ms:10.4f} ms  {name}\n" for name, ms in top)
+    phase("ganesha_pt_profile", wall_ms=f"{prof_wall_ms:.3f}",
+          unprofiled_median_ms=f"{wall_s * 1e3:.3f}",
+          device_busy_ms=f"{busy_ms:.3f}",
+          device_idle_share=f"{1 - busy_ms / prof_wall_ms:.3f}",
+          device_idle_share_of_median=f"{1 - busy_ms / (wall_s * 1e3):.3f}",
+          bvh8_walk_ms=f"{kernel_ms(per, 'bvh8_walk_kernel'):.3f}",
+          bvh8_walk_ms_by_bounce=json.dumps(by_bounce),
+          tile_ms=f"{kernel_ms(per, 'intersect_tile_tris'):.3f}",
+          intersect_tris_ms=f"{kernel_ms(per, 'intersect_tris_kernel'):.3f}",
+          intersect_spheres_ms=f"{kernel_ms(per, 'intersect_spheres_kernel'):.3f}",
+          device_ops=f"{n_ops:.0f}", kernels_seen=len(per))
+    pt.update(tile_ms=tile_res["ms"], tile_device_ms=tile_res["device_ms"],
+              tile_bound_ms=tile_res["bound"]["bound_ms"],
+              walk_render_ms=kernel_ms(per, "bvh8_walk_kernel"),
+              walk_ms_by_bounce=by_bounce)
+    return launches, pt
 
 
 def eye_witness(torch, np, rend):
@@ -2076,7 +2373,8 @@ def main() -> None:
 
     ppm_kernels, ppm_launches, raster = ppm_phases(torch, np, dev, smi)
 
-    mesh_kernels, mesh_launches = mesh_phases(torch, np, dev, smi)
+    mesh_kernels, mesh_launches, pt_launches, pt = mesh_phases(
+        torch, np, dev, smi)
 
     # bounds of the PT kernels: bounce 1 (full) reads state (10 planes),
     # radiance (3), offsets and the hierarchy, writes state and radiance,
@@ -2110,16 +2408,32 @@ def main() -> None:
               shape="shirley bounce 3, 194560 lanes",
               launches=launches["compact_blocks"]),
     ]
-    # the PPM pool and gather kernels run on the cornell and the ganesha
-    # paths: launches is the sum of the two runs, each read on its own
-    for k in ppm_kernels:
-        by_path = {"cornell": ppm_launches[k["name"]],
-                   "ganesha": mesh_launches[k["name"]]}
+    # the pool, gather and mesh kernels run on the cornell, ganesha and
+    # path-traced ganesha paths: launches is the sum of the runs of the
+    # paths each is on, each read on its own; the path-traced render's
+    # numbers join the entries of its four kernels
+    paths = {"cornell": ppm_launches, "ganesha": mesh_launches,
+             "ganesha_pt": pt_launches}
+    for k in ppm_kernels + mesh_kernels:
+        by_path = {p: counts[k["name"]] for p, counts in paths.items()
+                   if k["name"] in counts}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path)
-    kernels += ppm_kernels
-    for k in mesh_kernels:
-        k["launches"] = mesh_launches[k["name"]]
-    kernels += mesh_kernels
+    by_name = {k["name"]: k for k in ppm_kernels + mesh_kernels}
+    for name, key in (("intersect_spheres", "spheres_b1"),
+                      ("intersect_tris", "tris_b1")):
+        by_name[name].update(ms_pt_bounce1=pt[key][0],
+                             bound_ms_pt_bounce1=pt[key][1])
+    by_name["intersect_tile_tris"].update(
+        ms_pt=pt["tile_ms"], device_ms_pt=pt["tile_device_ms"],
+        bound_ms_pt=pt["tile_bound_ms"])
+    walk_pt = {f"{key}_pt_b{b}": pt[f"walk_b{b}"][key]
+               for b in PT_WALK_BOUNCES
+               for key in ("ms", "device_ms", "bound_ms", "bound_by",
+                           "steps_max")}
+    by_name["bvh8_walk"].update(
+        **walk_pt, device_ms_pt_render=pt["walk_render_ms"],
+        device_ms_pt_by_bounce=pt["walk_ms_by_bounce"])
+    kernels += ppm_kernels + mesh_kernels
     # the two-kernel bounce: bounce 1 (full) as ms, bounce 0 (listed)
     # beside it; launches from the fuse_bounce=False render
     (i1, ib1, s1, sb1), (i0, ib0, s0, sb0) = two_k[1], two_k[0]
@@ -2149,9 +2463,9 @@ def main() -> None:
               device_ms=cl_dev),
         raster,
     ]
-    # the kernels on no path: their counts as read around each of the four
+    # the kernels on no path: their counts as read around each of the five
     # main-path renders
-    require(len(NO_PATH_LAUNCHES) == 4,
+    require(len(NO_PATH_LAUNCHES) == 5,
             f"no-path counts read around {sorted(NO_PATH_LAUNCHES)}")
     for k in kernels[-2:]:
         by_path = {p: counts[k["name"]]

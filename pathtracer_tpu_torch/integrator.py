@@ -1,11 +1,13 @@
-"""Bounce-synchronous wavefront path tracer for sphere scenes, and the
-composite sphere + triangle intersector of the photon mapper.
+"""Bounce-synchronous wavefront path tracer for sphere scenes and for mesh
+scenes, and the composite sphere + triangle intersector of both the path
+tracer's mesh scenes and the photon mapper.
 
 Port of pathtracer_tpu/integrator.py: make_intersector (with its mesh
 branch; without the onehot select), the tiled pass (make_pass_fn's
 32x32-tile-major ray order), the kernel wavefront (_trace_pallas2), the
-bounce-0 per-tile sphere lists (tile_sphere_lists, a numpy copy) and the
-render driver (make_render_fn). Sampling follows the JAX package:
+composite mesh wavefront (trace), the bounce-0 per-tile sphere lists
+(tile_sphere_lists, a numpy copy) and the render driver (make_render_fn,
+with `mesh` the MeshRenderer). Sampling follows the JAX package:
 
   - sampler dimension count D = 2 + 2*max_bounces
   - sample offset = y*W + x + pass*spp   (pass*spp, not pass*W*H)
@@ -28,6 +30,14 @@ static. Here each compaction reads the live row count once on the host (one
 sync per compaction) and runs the remaining bounces on that many rows,
 rounded up to a multiple of 8 (one 1024-ray block). Rows past the live count
 are dead after pack_rows, so the cut is exact.
+
+A scene with a triangle mesh (ops.bvh.MeshBVH; the path-traced ganesha)
+takes the JAX composite tier instead: every bounce is make_intersector
+(the sphere and triangle pool kernels, the BVH8 walk kernel capped at the
+pools' winner t), the sky on a miss, then shading.scatter, eager tensor
+ops over (N, 3) rays. Bounce 0 meets the mesh through the tile-culled
+triangle kernel. Not ported: the PT mesh compaction ladder (measured
+neutral in the JAX package, off by default there).
 """
 
 from __future__ import annotations
@@ -37,9 +47,12 @@ import torch
 
 from . import film
 from .camera import Camera
-from .ops import vec
+from .models.shirley import sky
+from .ops import quat as quat_ops
+from .ops import shading, vec
 from .ops.cuda import compact_kernel as ck
 from .ops.cuda import fused_bounce_kernel as fbk
+from .ops.cuda import tile_tri_kernel as ttk
 from .ops.cuda.shade_kernel import pack_material_tables, shade_state
 from .ops.cuda.sphere_kernel import (BIG, LANES, LIST_UNROLL, SphereBVH,
                                      build_sphere_bvh, intersect_spheres,
@@ -53,7 +66,8 @@ from .scene import (TRI_A, TRI_E1, TRI_E2, TRI_MAT, TRI_TEX, Scene,
                     eval_texture)
 
 __all__ = ["make_intersector", "TILE", "tile_sphere_lists", "initial_state",
-           "trace_wavefront", "Renderer", "make_render_fn"]
+           "trace_wavefront", "Renderer", "trace", "MeshRenderer",
+           "make_render_fn"]
 
 _f32 = lambda x: float(np.float32(x))
 _PI = _f32(np.pi)
@@ -414,9 +428,146 @@ class Renderer(torch.nn.Module):
         return img, int(segments)
 
 
+def trace(scene: Scene, sampler: Sampler, org, d, offset, max_bounces: int,
+          background, alive0, mesh=None, mesh_intersect0=None):
+    """Trace a wavefront of rays through a scene with an optional triangle
+    mesh to completion: the JAX trace's composite tier (make_intersector,
+    shading.scatter) over (N, 3) rays, N a multiple of 1024.
+
+    org, d (N, 3) f32; offset (N,) sample offsets; background the
+    (bg_mode, colors) tuple (models.shirley.sky evaluates it on a miss);
+    alive0 (N,) bool; mesh an ops.bvh.MeshBVH; mesh_intersect0(org, d,
+    alive) -> (t, u, v, idx, hit) replaces the mesh walk at bounce 0 (the
+    tile-culled kernel of origin-zero primaries). Bounce b draws its two
+    samples at dimensions 2 + 2b and 3 + 2b. Returns (radiance (N, 3),
+    segments: the live lanes summed over the bounces, a 0-dim int64
+    tensor on the device)."""
+    hit_setup = make_intersector(scene, mesh)
+    hit_setup0 = (hit_setup if mesh_intersect0 is None
+                  else make_intersector(scene, mesh, mesh_intersect0))
+    alive = alive0
+    attn = torch.ones_like(org)
+    rad = torch.zeros_like(org)
+    segments = torch.zeros((), dtype=torch.int64, device=org.device)
+    for bounce in range(max_bounces):
+        segments += alive.sum()
+        h = (hit_setup0 if bounce == 0 else hit_setup)(org, d, alive)
+        hit = h["hit"] & alive
+        miss = alive & ~hit
+        rad = rad + vec.where3(miss, attn * sky(background, d),
+                               torch.zeros_like(rad))
+
+        q = shading.shader_quat(h["normal"])
+        omega_i = quat_ops.rotate(q, -d)
+        u = sampler.get(offset, 2 + 2 * bounce)
+        v = sampler.get(offset, 3 + 2 * bounce)
+        wo, attn_mult, ok = shading.scatter(
+            h["mat_kind"], h["albedo"], h["ior"], h["ior_inv"], omega_i,
+            h["hit_front"], u, v)
+        dir_world = quat_ops.rotate_inv(q, wo)
+        new_org = shading.world_ray(h["point"], dir_world)
+
+        alive = hit & ok
+        org = vec.where3(alive, new_org, org)
+        d = vec.where3(alive, dir_world, d)
+        attn = vec.where3(alive, attn * attn_mult, attn)
+    return rad, segments
+
+
+class MeshRenderer(torch.nn.Module):
+    """The path tracer over a scene with a triangle mesh (the path-traced
+    ganesha): one `trace` per pass, the passes' radiance summed on the
+    device, film reconstruction. forward(progress=None) -> (image (H, W, 3)
+    f32 on the device, segments traced, int, read once at the end).
+
+    Lanes are in raster order, lane = y * W + x, over ceil(H/32)*32 rows,
+    padded to a multiple of 1024; lanes past the image are dead. The JAX
+    package orders its TPU lanes tile-major; the tile-culled kernel here
+    reads and writes raster lanes (ops/cuda/tile_tri_kernel.py), so this
+    layout needs no lane permutation around it, and each lane's result
+    does not depend on the order. Bounce 0 meets the mesh through that
+    kernel over a table built once per renderer with the path tracer's
+    film map (flip_y=True), back-face culled when the mesh is watertight;
+    bounces >= 1 walk the mesh's BVH8 table."""
+
+    def __init__(self, scene: Scene, camera: Camera, background, width: int,
+                 height: int, spp: int, max_bounces: int, device, mesh):
+        super().__init__()
+        self.scene, self.camera, self.mesh = scene, camera, mesh
+        self.background = background
+        self.width, self.height = width, height
+        self.spp, self.max_bounces = spp, max_bounces
+        self.sampler = Sampler(2 + 2 * max_bounces)
+        self.rows = -(-height // TILE) * TILE
+        lanes = -(-(self.rows * width) // 1024) * 1024
+        self.tile_table = ttk.build_tile_tri_table(
+            camera, mesh.tri_a, mesh.tri_e1, mesh.tri_e2, width, height,
+            bvh=mesh, backface_cull=mesh.watertight, flip_y=True)
+        lane = np.arange(lanes)
+        buf = lambda name, x: self.register_buffer(
+            name, torch.as_tensor(x).to(device))
+        buf("lane", lane.astype(np.int64))
+        buf("x", (lane % width).astype(np.float32))
+        buf("y", (lane // width).astype(np.float32))
+        buf("alive0", lane < width * height)
+        for name, x in zip(("tile", "tile_start", "tile_src"),
+                           self.tile_table.tensors("cpu")):
+            buf(name, x)
+        buf("kern2d", film.binomial_kernel_2d(order=5, pixel_radius=1)
+            .astype(np.float32))
+
+    def primary(self, pass_idx: int):
+        """Bounce-0 rays of one pass: (offset, org, d, alive), offset =
+        y*W + x + pass*spp."""
+        offset = (self.lane + pass_idx * self.spp) & M32
+        dx = self.sampler.get(offset, 0)
+        dy = self.sampler.get(offset, 1)
+        cx = (self.x + dx) * float(np.float32(1.0 / self.width))
+        cy = 1.0 - (self.y + dy) * float(np.float32(1.0 / self.height))
+        d = self.camera.ray_dirs(cx, cy)
+        return offset, torch.zeros_like(d), d, self.alive0
+
+    def mesh_intersect0(self, org, d, alive):
+        """The tile-culled kernel over the raster band of whole tiles
+        (ttk.intersect_band); org is unused (primaries start at the
+        origin)."""
+        return ttk.intersect_band((self.tile, self.tile_start,
+                                   self.tile_src), d, alive, self.width,
+                                  self.rows)
+
+    def trace_pass(self, pass_idx: int):
+        """One sample per pixel: (radiance (lanes, 3) in raster order,
+        segments tensor)."""
+        offset, org, d, alive = self.primary(pass_idx)
+        return trace(self.scene, self.sampler, org, d, offset,
+                     self.max_bounces, self.background, alive, self.mesh,
+                     self.mesh_intersect0)
+
+    def image(self, rad: torch.Tensor) -> torch.Tensor:
+        """(lanes, 3) raster radiance -> (H, W, 3)."""
+        return rad[:self.width * self.height].reshape(self.height,
+                                                      self.width, 3)
+
+    @torch.no_grad()
+    def forward(self, progress=None):
+        sums = torch.zeros(self.lane.shape[0], 3, dtype=torch.float32,
+                           device=self.lane.device)
+        segments = torch.zeros((), dtype=torch.int64,
+                               device=self.lane.device)
+        for p in range(self.spp):
+            rad, segs = self.trace_pass(p)
+            sums += rad
+            segments += segs
+            if progress is not None:
+                progress(self.width * self.height)
+        img = film.finalize(film.apply_filter(self.image(sums), self.kern2d),
+                            self.spp)
+        return img, int(segments)
+
+
 def make_render_fn(camera: Camera, background, width: int, height: int,
                    spp: int, max_bounces: int, device,
-                   fuse_bounce: bool = True):
+                   fuse_bounce: bool = True, mesh=None):
     """render(scene, progress=None) -> (image (H, W, 3) f32 tensor on
     `device`, segments int). progress, if given, is called with the pixel
     count after each pass (the CLI's progress bar). fuse_bounce=False
@@ -424,7 +575,25 @@ def make_render_fn(camera: Camera, background, width: int, height: int,
     not a tuning option. The kernels'
     wrappers run their plain PyTorch versions when `device` is the CPU.
     The sphere hierarchy is built at the first render of a scene object
-    and reused while the same object is rendered again."""
+    and reused while the same object is rendered again.
+
+    mesh: an ops.bvh.MeshBVH on `device` (models.ganesha.build_pt's);
+    the render is then a MeshRenderer of the scene and the mesh (the JAX
+    make_render_fn(..., mesh=mesh)), built at the first render of a scene
+    object (its tile table and buffers) and reused while the same object
+    is rendered again. fuse_bounce does not apply there."""
+    if mesh is not None:
+        kept = [None, None]  # the scene last rendered and its renderer
+
+        def render_mesh(scene: Scene, progress=None):
+            if kept[0] is not scene:
+                kept[:] = scene, MeshRenderer(
+                    scene, camera, background, width, height, spp,
+                    max_bounces, device, mesh)
+            return kept[1](progress)
+
+        return render_mesh
+
     last = [None, None]  # the scene last rendered and its sphere hierarchy
 
     def render(scene: Scene, progress=None):

@@ -1,10 +1,11 @@
 """Ganesha PLY scene: a PLY triangle mesh over a huge checkered floor, lit
-by two spot lights, rendered by progressive photon mapping.
+by two spot lights, rendered by progressive photon mapping (build), or the
+same mesh and floor under the shirley sky, path traced (build_pt).
 
-Port of pathtracer_tpu/models/ganesha.py (make_camera, load_mesh, build;
-the path-traced build_pt is not ported). The mesh rides the BVH8 walk
-(ops.bvh.MeshBVH); the 2-triangle floor sits in the scene's triangle pool,
-the reference's floor-then-mesh intersect expressed as nearest-of-pools.
+Port of pathtracer_tpu/models/ganesha.py (make_camera, load_mesh, build,
+build_pt). The mesh rides the BVH8 walk (ops.bvh.MeshBVH); the 2-triangle
+floor sits in the scene's triangle pool, the reference's floor-then-mesh
+intersect expressed as nearest-of-pools.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from ..io import ply
 from ..ops.bvh import MeshBVH
 from ..ppm import Light
 from ..scene import LAMBERTIAN, TEX_CHECKER, SceneBuilder
+from . import shirley
 
 
 def make_camera(aspect: float) -> Camera:
@@ -92,3 +94,12 @@ def build(path: str, aspect: float, device):
         Light.spot((0.0, 0.0, 1.0), (0.0, 0.0, -1.0), power=3000.0),
     ]
     return scene, cam, lights, mesh
+
+
+def build_pt(path: str, aspect: float, device):
+    """The path-traced ganesha: build's mesh and floor under the shirley
+    sky instead of the spot lights. Returns (scene on `device`, camera,
+    background (shirley.BACKGROUND), mesh); render it with
+    integrator.make_render_fn(..., mesh=mesh)."""
+    scene, cam, _lights, mesh = build(path, aspect, device)
+    return scene, cam, shirley.BACKGROUND, mesh

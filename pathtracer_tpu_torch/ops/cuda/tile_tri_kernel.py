@@ -1,12 +1,15 @@
 """Per-tile frustum-culled triangle lists for primary rays (the ganesha eye
-pass): the host-side table build and the nearest-hit kernel.
+pass, and bounce 0 of the path-traced ganesha): the host-side table build
+and the nearest-hit kernel.
 
 Port of pathtracer_tpu/ops/pallas/tile_tri_kernel.py: TileTriTable,
-build_tile_tri_table (the BVH-guided cull and the back-face cull; the
-brute-force sgemm cull is not ported, so a MeshBVH is required), lane_maps,
-and intersect_tile_tris_pallas as `intersect_tile_tris`, which launches
-csrc/intersect_tile_tris.cu for CUDA tensors and runs
-`intersect_tile_tris_plain` for CPU tensors.
+build_tile_tri_table (the BVH-guided cull and the back-face cull, in
+either film map (flip_y); the brute-force sgemm cull is not ported, so a
+MeshBVH is required), lane_maps, and intersect_tile_tris_pallas as
+`intersect_tile_tris`, which launches csrc/intersect_tile_tris.cu for CUDA
+tensors and runs `intersect_tile_tris_plain` for CPU tensors.
+`intersect_band` gives its hits in make_intersector's mesh_intersect
+contract, for both renderers.
 
 Primary rays start at the camera-space origin, so a 32x32 image tile's rays
 lie inside the cone of its 4 corner directions and a conservative per-tile
@@ -42,7 +45,8 @@ from ..frustum import tile_frustum_planes
 from .sphere_kernel import BIG
 
 __all__ = ["TILE", "CHUNK", "TileTriTable", "build_tile_tri_table",
-           "lane_maps", "intersect_tile_tris", "intersect_tile_tris_plain"]
+           "lane_maps", "intersect_tile_tris", "intersect_tile_tris_plain",
+           "intersect_band"]
 
 _EPS = float(np.float32(1e-6))
 TILE = 32
@@ -75,12 +79,15 @@ class TileTriTable:
                                self.tile_chunk_src))
 
 
-def _tile_corner_dirs(camera, width, height, tx_n, ty_n):
-    """(T, 4, 3) f64 corner directions per tile in the PPM eye pass's film
-    map (cy = y/H, not flipped). A tile's rays are exactly the conical hull
-    of these 4 directions."""
+def _tile_corner_dirs(camera, width, height, tx_n, ty_n, flip_y=False):
+    """(T, 4, 3) f64 corner directions per tile in the consumer's film map:
+    the PPM eye pass's cy = y/H (flip_y False) or the path tracer's
+    cy = 1 - y/H (flip_y True), as tile_frustum_planes. A tile's rays are
+    exactly the conical hull of these 4 directions."""
     xs = np.arange(tx_n + 1) * (TILE / width)
     ys = np.arange(ty_n + 1) * (TILE / height)
+    if flip_y:
+        ys = 1.0 - ys
     cx = np.broadcast_to(xs[None, :], (ty_n + 1, tx_n + 1))
     cy = np.broadcast_to(ys[:, None], (ty_n + 1, tx_n + 1))
     dirs = np.stack([camera.lower_left_x + camera.view_x * cx,
@@ -91,13 +98,15 @@ def _tile_corner_dirs(camera, width, height, tx_n, ty_n):
 
 
 def build_tile_tri_table(camera, tri_a, tri_e1, tri_e2, width: int,
-                         height: int, bvh,
-                         backface_cull: bool = False) -> TileTriTable:
+                         height: int, bvh, backface_cull: bool = False,
+                         flip_y: bool = False) -> TileTriTable:
     """Conservative cull of every triangle's box against every 32x32 tile
     frustum, gathered into the flat chunk table; indices stay ascending per
     tile so the kernel's strict-< running min picks the lowest index on
-    ties. The tiles follow the PPM eye pass's film map (cy = y/H,
-    flip_y=False in tile_frustum_planes).
+    ties. flip_y picks the consumer's film map, for the planes and the
+    back-face cull's corners alike: the PPM eye pass's cy = y/H (False) or
+    the path tracer's cy = 1 - y/H (True). Either way tile (ty, tx) holds
+    the raster rows [32 ty, 32 ty + 32) of the consumer's lanes.
 
     bvh: the MeshBVH over the same (BVH-ordered) triangle arrays. The cull
     is one stackless descent per tile in C++ (native.tile_cull): a node
@@ -123,7 +132,7 @@ def build_tile_tri_table(camera, tri_a, tri_e1, tri_e2, width: int,
     tx_n = -(-width // TILE)
     ty_n = -(-height // TILE)
     planes = tile_frustum_planes(camera, width, height, tx_n, ty_n,
-                                 flip_y=False, with_z_plane=True, tile=TILE)
+                                 flip_y=flip_y, with_z_plane=True, tile=TILE)
     t_n = planes.shape[0]
     n = len(tri_a)
     keep = (native.tile_cull(bvh.nodes_lo, bvh.nodes_hi, bvh.meta_np, lo, hi,
@@ -131,7 +140,8 @@ def build_tile_tri_table(camera, tri_a, tri_e1, tri_e2, width: int,
             else np.zeros((t_n, 0), bool))
 
     if backface_cull and n:
-        corners = _tile_corner_dirs(camera, width, height, tx_n, ty_n)
+        corners = _tile_corner_dirs(camera, width, height, tx_n, ty_n,
+                                    flip_y=flip_y)
         normals = np.cross(tri_e1.astype(np.float64),
                            tri_e2.astype(np.float64))
         vol6 = float(np.einsum("ij,ij->", tri_a.astype(np.float64), normals))
@@ -342,3 +352,18 @@ def intersect_tile_tris(table, tile_chunk_start, tile_chunk_src, d,
 
 
 intersect_tile_tris.launches = 0
+
+
+def intersect_band(tile, d, alive, width: int, rows: int):
+    """The mesh hits of origin-zero primaries in raster lanes through
+    intersect_tile_tris, in make_intersector's mesh_intersect contract:
+    tile the (table, tile_chunk_start, tile_chunk_src) tensors; d (N, 3)
+    f32 with N >= rows * width, rows a multiple of 32; alive (N,) bool.
+    The band's lanes go through the kernel, the lanes past it read as
+    misses. Returns (t, u, v, idx int32, hit), each (N,)."""
+    n = rows * width
+    t, u, v, idx = intersect_tile_tris(*tile, d[:n], width)
+    pad = d.shape[0] - n
+    t = torch.nn.functional.pad(t, (0, pad), value=BIG)
+    u, v, idx = (torch.nn.functional.pad(x, (0, pad)) for x in (u, v, idx))
+    return t, u, v, idx, (t < BIG) & alive

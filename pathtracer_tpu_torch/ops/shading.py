@@ -2,9 +2,11 @@
 directions, as masked tensor math over the whole wavefront.
 
 Port of pathtracer_tpu/ops/shading.py (shader_quat, world_ray, reflect_local,
-refract_local, cosine_hemisphere, schlick). `x ** 5` is written as
-x * (x^2 * x^2), the product order of JAX's integer_pow, and every constant is
-the float32 value the JAX code uses.
+refract_local, cosine_hemisphere, schlick, scatter). `x ** 5` is written as
+x * (x^2 * x^2), the product order of JAX's integer_pow, `jnp.square(x)` as
+x * x, every root goes through vec.sqrt, and every constant is the float32
+value the JAX code uses. `specular` is the metal and dielectric part of
+scatter, which the photon mapper's passes share.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 from . import quat, vec
 
 __all__ = ["pow5", "shader_quat", "world_ray", "reflect_local",
-           "refract_local", "cosine_hemisphere", "schlick"]
+           "refract_local", "cosine_hemisphere", "schlick", "specular",
+           "scatter"]
 
 _f32 = lambda x: float(np.float32(x))
 _SHADOW = _f32(1e-3)
@@ -78,3 +81,43 @@ def schlick(cos_theta, index) -> torch.Tensor:
     r = (1.0 - index) / (1.0 + index)
     r0 = r * r
     return r0 + (1.0 - r0) * pow5(1.0 - cos_theta)
+
+
+def specular(albedo, ior, ior_inv, omega_i, hit_front, u):
+    """The metal and dielectric scatter in the local frame: (wo_met,
+    met_ok, tint, wo_die). Metal mirrors, absorbs below the horizon and
+    tints by albedo + (1 - albedo) (1 - wi_z)^5; a dielectric reflects on
+    total internal reflection or when Schlick's reflectance exceeds u, else
+    refracts."""
+    wi_z = omega_i[:, 2]
+    wo_met = reflect_local(omega_i)
+    met_ok = wo_met[:, 2] > 0.0
+    tint = albedo + (1.0 - albedo) * pow5(1.0 - wi_z)[:, None]
+    ci = torch.clamp(wi_z, 0.0, 1.0)
+    si = vec.sqrt(1.0 - ci * ci)
+    ratio = torch.where(hit_front, ior_inv, ior)
+    refl = (ratio * si > 1.0) | (schlick(ci, ratio) > u)
+    wo_die = vec.where3(refl, wo_met, refract_local(omega_i, ratio))
+    return wo_met, met_ok, tint, wo_die
+
+
+def scatter(mat_kind, albedo, ior, ior_inv, omega_i, hit_front, u, v):
+    """Masked material dispatch of the path tracer, all in the local frame:
+    every branch for every lane, selected by mat_kind (0 lambertian, 1
+    metal, 2 dielectric). Lambertian takes the cosine-hemisphere sample
+    and its albedo (the pdf ratio is 1); metal and dielectric are
+    `specular`'s, a dielectric with white attenuation. mat_kind, ior,
+    ior_inv, u, v (N,) f32; albedo, omega_i (N, 3) f32; hit_front (N,)
+    bool. Returns (wo (N, 3), attn_mult (N, 3), ok (N,) bool); ok is False
+    where the path ends (metal below the horizon, a lambertian sample with
+    pdf 0)."""
+    wo_lam = cosine_hemisphere(u, v)
+    lam_ok = wo_lam[:, 2] > 0.0
+    wo_met, met_ok, tint, wo_die = specular(albedo, ior, ior_inv, omega_i,
+                                            hit_front, u)
+    is_met = (mat_kind == 1)[:, None]
+    is_die = (mat_kind == 2)[:, None]
+    wo = torch.where(is_die, wo_die, torch.where(is_met, wo_met, wo_lam))
+    attn = torch.where(is_die, 1.0, torch.where(is_met, tint, albedo))
+    ok = (mat_kind == 2) | torch.where(mat_kind == 1, met_ok, lam_ok)
+    return wo, attn, ok

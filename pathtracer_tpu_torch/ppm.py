@@ -46,7 +46,6 @@ from typing import List
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .camera import Camera
 from .integrator import make_intersector
@@ -144,22 +143,6 @@ def _emit_rays(lights, counts, starts, lane_ids, u, v):
     return org, d, flux
 
 
-def _specular(h, omega_i, u):
-    """The metal and dielectric scatter shared by both passes: (wo_met,
-    met_ok, tint, wo_die) in the local frame."""
-    wi_z = omega_i[:, 2]
-    albedo = h["albedo"]
-    wo_met = shading.reflect_local(omega_i)
-    met_ok = wo_met[:, 2] > 0.0
-    tint = albedo + (1.0 - albedo) * shading.pow5(1.0 - wi_z)[:, None]
-    ci = torch.clamp(wi_z, 0.0, 1.0)
-    si = vec.sqrt(1.0 - ci * ci)
-    ratio = torch.where(h["hit_front"], h["ior_inv"], h["ior"])
-    refl = (ratio * si > 1.0) | (shading.schlick(ci, ratio) > u)
-    wo_die = vec.where3(refl, wo_met, shading.refract_local(omega_i, ratio))
-    return wo_met, met_ok, tint, wo_die
-
-
 def make_photon_pass(scene: Scene, lights, photon_count: int,
                      max_bounces: int, mesh=None):
     """Build trace_photons(offset_base: int) -> (pos, nrm, flux, valid,
@@ -202,7 +185,8 @@ def make_photon_pass(scene: Scene, lights, photon_count: int,
             f_dep = flux * albedo
             deposits.append((h["point"], h["normal"], f_dep, hit & is_diff))
 
-            wo_met, met_ok, tint, wo_die = _specular(h, omega_i, u)
+            wo_met, met_ok, tint, wo_die = shading.specular(
+                albedo, h["ior"], h["ior_inv"], omega_i, h["hit_front"], u)
             # diffuse Russian roulette
             cmax = torch.amax(albedo, dim=-1)
             rr = u <= cmax
@@ -295,14 +279,8 @@ def make_eye_pass(camera: Camera, width: int, height: int,
         rows = -(-height // ttk.TILE) * ttk.TILE
 
         def mesh_intersect(org, d, alive_m):
-            # primaries start at the origin, so org is unused; lanes past
-            # the band's rows*W read as misses
-            n = rows * width
-            t, u, v, idx = ttk.intersect_tile_tris(*tile, d[:n], width)
-            pad = d.shape[0] - n
-            t = F.pad(t, (0, pad), value=BIG)
-            u, v, idx = (F.pad(x, (0, pad)) for x in (u, v, idx))
-            return t, u, v, idx, (t < BIG) & alive_m
+            # primaries start at the origin, so org is unused
+            return ttk.intersect_band(tile, d, alive_m, width, rows)
 
     n_pix = width * height
     lanes = -(-(width * rows) // 1024) * 1024
@@ -352,7 +330,8 @@ def make_eye_pass(camera: Camera, width: int, height: int,
             fd_ok = fd_ok | take
 
             # specular continuation
-            wo_met, met_ok, tint, wo_die = _specular(h, omega_i, u)
+            wo_met, met_ok, tint, wo_die = shading.specular(
+                albedo, h["ior"], h["ior_inv"], omega_i, h["hit_front"], u)
             wo = vec.where3(is_met, wo_met, wo_die)
             beta_new = vec.where3(is_met, beta * tint, beta)
             ok = torch.where(is_met, met_ok, ~is_diff)

@@ -29,8 +29,10 @@ gather_kernel.SEG, a tile of more than one chunk).
 The mesh kernels (the BVH8 walk, the tile-culled triangle kernel) must
 equal their plain versions exactly too, on a random triangle soup with
 rays of exact-zero direction components and on a uv-sphere with empty
-tiles. The ganesha render on the card is held to the CPU render by
-the cornell bounds.
+tiles, in the film maps of both the photon mapper and the path tracer
+(flip_y), and the walk on the incoherent bounce rays of a path-traced
+pass. The ganesha renders on the card, photon mapped and path traced, are
+held to the CPU renders by the cornell bounds.
 
 The full-variant bounce kernels (fused and intersect_state) walk the
 per-scene sphere hierarchy per warp; their tests check that the walk
@@ -492,11 +494,10 @@ def test_bvh8_walk_kernel_matches_plain_on_photon_bounces(dev):
         assert int(got[4].sum()) > 0
 
 
-def test_intersect_tile_tris_kernel_matches_plain(dev):
-    """A 48x32 uv-sphere (2,976 triangles) under the ganesha camera at
-    88x96: tiles of up to 5 chunks, which the kernel splits one chunk per
-    work item, empty tiles (the shared zero chunk) and a partial last tile
-    column."""
+def _tile_kernel_equals_plain(dev, flip_y):
+    """The tile kernel against its plain version on a 48x32 uv-sphere
+    (2,976 triangles) under the ganesha camera at 88x96, its table and
+    its jittered raster primaries in the film map of flip_y."""
     from pathtracer_tpu_torch.models import ganesha
     from pathtracer_tpu_torch.ops.bvh import MeshBVH
     from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
@@ -507,7 +508,7 @@ def test_intersect_tile_tris_kernel_matches_plain(dev):
     m = MeshBVH(cam.transform_points(verts), faces,
                 np.zeros(12), dev, watertight=True)
     tt = ttk.build_tile_tri_table(cam, m.tri_a, m.tri_e1, m.tri_e2, w, h,
-                                  bvh=m, backface_cull=True)
+                                  bvh=m, backface_cull=True, flip_y=flip_y)
     empty = tt.tile_chunk_src == tt.zero_chunk
     assert empty.any() and not empty.all()
     assert np.diff(tt.tile_chunk_start).max() > 1  # a tile splits
@@ -517,6 +518,8 @@ def test_intersect_tile_tris_kernel_matches_plain(dev):
           .to(dev)) * np.float32(1.0 / w)
     cy = ((lane // w).float() + torch.from_numpy(rng.random(w * h, np.float32))
           .to(dev)) * np.float32(1.0 / h)
+    if flip_y:
+        cy = 1.0 - cy
     d = cam.ray_dirs(cx, cy).contiguous()
     tabs = tt.tensors(dev)
     before = ttk.intersect_tile_tris.launches
@@ -528,6 +531,100 @@ def test_intersect_tile_tris_kernel_matches_plain(dev):
     hit = got[0] < ttk.BIG
     assert 50 < int(hit.sum()) < w * h - 50
     assert not bool(got[1][~hit].any()) and not bool(got[3][~hit].any())
+    return m, d, hit
+
+
+def test_intersect_tile_tris_kernel_matches_plain(dev):
+    """A 48x32 uv-sphere (2,976 triangles) under the ganesha camera at
+    88x96: tiles of up to 5 chunks, which the kernel splits one chunk per
+    work item, empty tiles (the shared zero chunk) and a partial last tile
+    column."""
+    _tile_kernel_equals_plain(dev, flip_y=False)
+
+
+def test_intersect_tile_tris_kernel_matches_plain_on_a_flip_y_table(dev):
+    """The same on the path tracer's film map (flip_y=True, cy = 1 - y/H):
+    the kernel equals its plain version, and the flipped table's lists
+    (back-face culled with flipped corners) find every hit of the walk."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    m, d, hit = _tile_kernel_equals_plain(dev, flip_y=True)
+    n = d.shape[0]
+    walk = bw.bvh8_walk(m.table, torch.zeros_like(d), d,
+                        torch.full((n,), 1e30, device=dev),
+                        torch.ones(n, dtype=torch.bool, device=dev),
+                        m.node_end, m.stride)
+    assert torch.equal(hit, walk[4])
+
+
+def _tiny_ganesha_pt(dev, tmp_path):
+    """The tiny ganesha (the 168-triangle uv-sphere over the floor, under
+    the sky) of models.ganesha.build_pt on `dev`."""
+    from pathtracer_tpu_torch.io import ply
+    from pathtracer_tpu_torch.models import ganesha
+
+    verts, faces = _uv_sphere()
+    path = os.path.join(str(tmp_path), "tiny_ganesha.ply")
+    ply.write_mesh(path, verts, faces)
+    return ganesha.build_pt(path, 1.0, dev)
+
+
+def test_bvh8_walk_kernel_matches_plain_on_pt_bounce_rays(dev, tmp_path):
+    """The walk's inputs of bounces 1-3 of a path-traced pass (64x64,
+    spp 1, 4 bounces) over the tiny ganesha: incoherent rays leaving the
+    floor and the mesh, capped at the floor's t."""
+    from pathtracer_tpu_torch.integrator import MeshRenderer
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    scene, cam, bg, mesh = _tiny_ganesha_pt(dev, tmp_path)
+    r = MeshRenderer(scene, cam, bg, 64, 64, 1, 4, dev, mesh)
+    walk_in = []
+    walk = mesh.intersect
+
+    def record(org, d, t_max0, active):
+        walk_in.append(tuple(x.clone() for x in (org, d, t_max0, active)))
+        return walk(org, d, t_max0, active)
+
+    mesh.intersect = record
+    r.trace_pass(0)
+    del mesh.intersect
+    assert len(walk_in) == 3  # bounce 0 goes through the tile kernel
+    for org, d, t_max0, active in walk_in:
+        assert bool((org[active] != 0).any(dim=1).all())
+        args = (mesh.table, org, d, t_max0, active, mesh.node_end,
+                mesh.stride)
+        got = bw.bvh8_walk(*args)
+        want = bw.bvh8_walk_plain(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int(bw.bvh8_walk(*(mesh.table, *walk_in[0], mesh.node_end,
+                              mesh.stride))[4].sum()) > 0
+
+
+def test_ganesha_pt_card_render_matches_cpu(dev, tmp_path):
+    """make_render_fn(..., mesh=mesh) at 64x64, spp 2, 8 bounces over the
+    tiny ganesha on the card (four kernels) and on the CPU: segments
+    within 0.5%, image RMSE <= 1e-3 (the cornell bounds: the glue's
+    sin/cos may differ by an ulp between the devices and turn a path)."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+
+    counters = (sk.intersect_spheres, tk.intersect_tris, bw.bvh8_walk,
+                ttk.intersect_tile_tris)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        scene, cam, bg, mesh = _tiny_ganesha_pt(device, tmp_path)
+        for fn in counters:
+            fn.launches = 0
+        img, segs = make_render_fn(cam, bg, 64, 64, 2, 8, device,
+                                   mesh=mesh)(scene)
+        out[device.type] = (img.cpu().numpy(), segs,
+                            [fn.launches for fn in counters])
+    (img, segs, launches), (want, want_segs, cpu_launches) = (out["cuda"],
+                                                              out["cpu"])
+    assert launches == [16, 16, 14, 2] and cpu_launches == [0, 0, 0, 0]
+    assert abs(segs - want_segs) <= 0.005 * want_segs
+    assert np.isfinite(img).all()
+    assert float(np.sqrt(np.mean((img - want) ** 2))) <= 1e-3
 
 
 def test_ganesha_card_render_matches_cpu(dev):
