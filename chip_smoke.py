@@ -132,6 +132,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
      and the median wall of 3 warm renders, a PNG, and one profiled
      render's device busy, idle share and time by kernel with the walk's
      device ms by bounce (chiprun_out/ganesha_pt_profile.txt).
+ 14. multi-device (pathtracer_tpu_torch.parallel), four lines and a
+     total: (a) in this process, an NCCL group of one: the shirley render
+     through make_sharded_render_fn equal to phase 4's image and
+     segments, the path-traced ganesha's to phase 13's, and the Renderer
+     bands at sp = 2 and 4 and the MeshRenderer bands at sp = 2, stitched
+     and filtered, equal to those images; cornell's replicated map and
+     the ganesha ring, 2 iterations each, in the group (the references of
+     (b)); and intersect_tile_tris over band_tile_maps of phase 11's table
+     (tile rows 0-9, and 10-19 with row 19 past the image) equal to its
+     plain version on the same maps; (b) two gloo ranks sharing the
+     card, one group.spawn of this script's rank_runs (NCCL refuses two
+     ranks on one GPU): shirley at (dp, sp) = (1, 2) and the path-traced
+     ganesha at (1, 2) equal to phases 4 and 13, (2, 1) within atol 1e-5
+     with equal segments; then cornell 600x600, 2 iterations: the
+     replicated map equal to (a)'s group of one (the same 256-row bands),
+     the sharded and ring maps within atol 1e-6 / rtol 1e-4 of it, the
+     map lengths equal to phase 7's first two, and the ganesha ring within
+     the same bounds of (a)'s; each rank's launches, walls per render and
+     one ring hop's ms of a sub-grid (gloo through host memory); (c)
+     `cornell-box -shard-photon-map ring` under `torchrun` (one process)
+     prints `backend = nccl` and writes a 600x600 PNG.
 Each kernel's bound_ms in the JSON line is the larger of the bytes it must
 move over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
 from this run's inputs (OPS below); for the full-variant sphere loop
@@ -139,9 +160,12 @@ from this run's inputs (OPS below); for the full-variant sphere loop
 with the brute force's bound beside it as bound_ms_brute; for the
 clustered kernel the least of its three bounds. The clustered
 kernel and the raster gather are on no render path: their counts are set
-to 0 with the path's own before each of the five main-path renders (4, 4b,
-7, 11, 13), read after it, and must stay 0. The pool, gather and mesh
-kernels' launches sum their paths' renders (launches_by_path).
+to 0 with the path's own before each of the six main-path runs in this
+process (4, 4b, 7, 11, 13, 14a) and around 14b's ranks' renders, read
+after it, and must stay 0. Every other kernel's launches sum its
+one-process paths' runs (4, 7, 11, 13), as before phase 14;
+launches_by_path adds 14a's and 14b's (each rank's counts, read around
+its renders, summed).
 Then a JSON line of kernel results, the nvidia-smi line, and the final
 `{"ok": true, "device": {...}}` line. Without a CUDA device, or without the
 package beside this script, it fails before printing any result.
@@ -535,6 +559,95 @@ def read_no_path(path: str, launches: dict) -> None:
     """Move the no-path kernels' counts out of one render's `launches` into
     NO_PATH_LAUNCHES[path]."""
     NO_PATH_LAUNCHES[path] = {k: launches.pop(k) for k in no_path_kernels()}
+
+
+def path_kernels() -> dict:
+    """The launch-counted wrappers of the seven kernels on the
+    multi-device paths (phase 14), by name."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bwk
+    from pathtracer_tpu_torch.ops.cuda import compact_kernel as ck
+    from pathtracer_tpu_torch.ops.cuda import fused_bounce_kernel as fbk
+    from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+    from pathtracer_tpu_torch.ops.cuda import tri_kernel as tk
+    return {"fused_bounce": fbk.fused_bounce,
+            "compact_blocks": ck.compact_blocks,
+            "intersect_spheres": sk.intersect_spheres,
+            "intersect_tris": tk.intersect_tris,
+            "gather_flux_chunks": gk.gather_flux_chunks,
+            "intersect_tile_tris": ttk.intersect_tile_tris,
+            "bvh8_walk": bwk.bvh8_walk}
+
+
+def counted(torch, dev, fn):
+    """(fn()'s result, launches by kernel of path_kernels and
+    no_path_kernels, wall seconds) of one call, the counts set to 0 just
+    before it and read just after."""
+    counters = {**path_kernels(), **no_path_kernels()}
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return out, {k: f.launches for k, f in counters.items()}, wall
+
+
+def ring_hop_ms(torch, dev, rows: int):
+    """Median ms of 5 timed (after one warm) group.ring_shift calls over
+    the default group of a sub-grid of `rows` deposits, of
+    build_photon_chunks' shapes: (16, Np_pad) and (6, Np_pad / 32) f32."""
+    import torch.distributed as dist
+
+    from pathtracer_tpu_torch.parallel import group
+
+    np_pad = -(-rows // 128) * 128
+    grid = (torch.zeros(16, np_pad, device=dev),
+            torch.zeros(6, np_pad // 32, device=dev))
+    times = [counted(torch, dev, lambda: group.ring_shift(
+        grid, dist.group.WORLD))[2] * 1e3 for _ in range(6)]
+    return sorted(times[1:])[2]
+
+
+def rank_runs(dev, jobs) -> list:
+    """Phase 14b's entry point on each spawned rank
+    (group.spawn("chip_smoke:rank_runs", ...)): each job of kind "pt" is
+    parallel.ranks.sharded_pt's render, run job["renders"] times; each of
+    kind "ppm" one render of parallel.ranks.ppm_renderer's, then
+    ring_hop_ms at its deposit rows. Returns per job the (last) image on
+    the CPU, its segments or photon map lengths, and every rank's deposit
+    rows, launches of the last render, walls and hop ms."""
+    import torch
+    import torch.distributed as dist
+    from pathtracer_tpu_torch.parallel import ranks
+
+    def every(obj):
+        objs = [None] * dist.get_world_size()
+        dist.all_gather_object(objs, obj)
+        return objs
+
+    out = []
+    for job in jobs:
+        if job["kind"] == "pt":
+            render, walls = ranks.sharded_pt(dev, job), []
+            for _ in range(job["renders"]):
+                (img, segs), launches, wall = counted(torch, dev, render)
+                walls.append(wall)
+            res = dict(segments=segs)
+        else:
+            rend = ranks.ppm_renderer(dev, job)
+            img, launches, wall = counted(torch, dev, rend.render)
+            walls = wall
+            res = dict(photon_map_lengths=[int(n) for n in
+                                           rend.photon_map_lengths],
+                       deposit_rows=every(rend.deposit_rows),
+                       hop_ms=every(ring_hop_ms(torch, dev,
+                                                rend.deposit_rows)))
+        out.append(dict(res, img=img.cpu(), launches=every(launches),
+                        walls=every(walls)))
+    return out
 
 
 def gather_walk(torch, gk, pt, act, lists, counts, sbox, radius):
@@ -1124,7 +1237,8 @@ def raster_gather_phase(torch, np, deposits, hits, r1, chunks):
 def ppm_phases(torch, np, dev, smi):
     """Phases 6-8: the photon mapper's kernels, the raster-grid gather, the
     cornell render and its CLI. Returns (kernel JSON entries without
-    launches, launch counts of the render, the raster gather's entry)."""
+    launches, launch counts of the render, the raster gather's entry, the
+    render's photon map lengths)."""
     from pathtracer_tpu_torch import ppm
     from pathtracer_tpu_torch.models import cornell
     from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
@@ -1366,7 +1480,7 @@ def ppm_phases(torch, np, dev, smi):
               bound_by_all_blocks=g_bound_all["bound_by"],
               items_all_blocks=work["items"], seg=gk.SEG),
     ]
-    return kernels, launches, raster
+    return kernels, launches, raster, lengths
 
 
 def tile_real_counts(np, ttk, tt):
@@ -1979,6 +2093,7 @@ def ganesha_pt_phases(torch, np, smi, ppm_rend):
           intersect_tris_ms=f"{kernel_ms(per, 'intersect_tris_kernel'):.3f}",
           intersect_spheres_ms=f"{kernel_ms(per, 'intersect_spheres_kernel'):.3f}",
           device_ops=f"{n_ops:.0f}", kernels_seen=len(per))
+    pt.update(rend=ppm_rend, image=img_t, segments=segments)
     pt.update(tile_ms=tile_res["ms"], tile_device_ms=tile_res["device_ms"],
               tile_bound_ms=tile_res["bound"]["bound_ms"],
               walk_render_ms=kernel_ms(per, "bvh8_walk_kernel"),
@@ -2059,6 +2174,231 @@ def eye_witness(torch, np, rend):
     require(w_share <= GANESHA_WITNESS_SHARE,
             f"the eye pass over the reference's photons: RMSE share "
             f"{w_share} > {GANESHA_WITNESS_SHARE}")
+
+
+def multi_device_phases(torch, np, dev, smi, shirley_ref, pt_ref,
+                        cornell_lengths):
+    """Phase 14: multi-device rendering (pathtracer_tpu_torch.parallel).
+    shirley_ref: phase 4's (image, segments); pt_ref: phase 13's
+    {"rend": phase 9's ganesha PPMRenderer, "image", "segments"};
+    cornell_lengths: phase 7's photon map lengths. Returns the launch
+    counts of 14a's renders in the group of one (the counts set to 0 just
+    before them and read just after) and the summed counts of 14b's
+    ranks."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pathtracer_tpu_torch import film, ppm
+    from pathtracer_tpu_torch.integrator import TILE, MeshRenderer, Renderer
+    from pathtracer_tpu_torch.models import cornell, shirley
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+    from pathtracer_tpu_torch.parallel import group
+    from pathtracer_tpu_torch.parallel.mesh import (make_mesh,
+                                                    make_sharded_render_fn)
+    from pathtracer_tpu_torch.parallel.ppm_ring import make_ppm_mesh
+
+    t_phase = time.perf_counter()
+    os.makedirs(OUT, exist_ok=True)
+    rdv = tempfile.mkdtemp(prefix="rdv_", dir=OUT)
+    img4, segs4 = shirley_ref
+    g_rend, img13, segs13 = pt_ref["rend"], pt_ref["image"], pt_ref["segments"]
+    pt_scene, pt_cam, pt_mesh = g_rend.scene, g_rend.camera, g_rend.mesh
+    pt_bg = shirley.BACKGROUND
+    iters = 2  # the PPM renders' iterations
+
+    def bands(make, height, sp, spp):
+        """make(tile_row0, band)'s sp bands, stitched, through the film."""
+        tyn = -(-height // TILE)
+        band = -(-tyn // sp)
+        parts = []
+        for s in range(sp):
+            r = make(s * band, band)
+            parts.append(r.band_image(r.band_sums(range(spp))[0]))
+        return film.finalize(film.apply_filter(torch.cat(parts)[:height],
+                                               r.kern2d), spp)
+
+    def ppm_in_group(scene, cam, lights, mesh, shard):
+        return ppm.PPMRenderer(
+            scene, cam, lights, PPM_SIZE, PPM_SIZE, iterations=iters,
+            photon_count=PPM_PHOTONS, max_bounces=PPM_BOUNCES,
+            verbose=False, mesh=mesh, group=pp.get_group("pp"),
+            shard_photon_map=shard)
+
+    # --- 14a. in this process: an NCCL group of one ------------------------
+    t0 = time.perf_counter()
+    group.init(dev.type, init_method=f"file://{rdv}/rendezvous", rank=0,
+               world_size=1)
+    backend = dist.get_backend()
+    mesh, pp = make_mesh(1, 1, dev.type), make_ppm_mesh(dev.type)
+    scene, cam, bg = shirley.build(WIDTH / HEIGHT, dev)
+    c_scene, c_cam, c_lights = cornell.build(1.0, dev)
+    sharded = make_sharded_render_fn(cam, bg, WIDTH, HEIGHT, SPP, BOUNCES,
+                                     mesh, dev)
+    sharded_pt = make_sharded_render_fn(pt_cam, pt_bg, PT_SIZE, PT_SIZE,
+                                        PT_SPP, PT_BOUNCES, mesh, dev,
+                                        scene_mesh=pt_mesh)
+    # the group of one's replicated cornell map (bands of
+    # ppm.GROUP_BAND_ROWS at any world size: 14b's two ranks must equal
+    # it) and ganesha ring (one band, the whole image)
+    rep1 = ppm_in_group(c_scene, c_cam, c_lights, None, False)
+    ring1 = ppm_in_group(pt_scene, pt_cam, g_rend.lights, pt_mesh, "ring")
+    (img, segs, img_pt, segs_pt, want_rep, want_g), launches, _ = counted(
+        torch, dev, lambda: (*sharded(scene), *sharded_pt(pt_scene),
+                             rep1.render().cpu(), ring1.render().cpu()))
+    read_no_path("multi_device", launches)
+    eq = {"shirley_world1": bool(torch.equal(img, img4)) and segs == segs4,
+          "ganesha_pt_world1": (bool(torch.equal(img_pt, img13))
+                                and segs_pt == segs13),
+          "cornell_lengths": [int(n) for n in rep1.photon_map_lengths]
+          == cornell_lengths[:iters]}
+    for sp in (2, 4):
+        eq[f"shirley_sp{sp}_bands"] = bool(torch.equal(bands(
+            lambda row0, band: Renderer(
+                scene, cam, bg, WIDTH, HEIGHT, SPP, BOUNCES, dev,
+                tile_row0=row0, band_tile_rows=band), HEIGHT, sp, SPP),
+            img4))
+    eq["ganesha_pt_sp2_bands"] = bool(torch.equal(bands(
+        lambda row0, band: MeshRenderer(
+            pt_scene, pt_cam, pt_bg, PT_SIZE, PT_SIZE, PT_SPP, PT_BOUNCES,
+            dev, pt_mesh, tile_row0=row0, band_tile_rows=band), PT_SIZE, 2,
+        PT_SPP), img13))
+    dist.destroy_process_group()
+    # the tile kernel over band_tile_maps of the ganesha PPM table (19 tile
+    # rows): tile rows 0-9, inside the image, and 10-19, whose row 19 lies
+    # past it (the zero chunk), against its plain version on the same maps
+    # and the band's primaries (NaN counted as equal)
+    tt, tile = g_rend.tile_table, g_rend.tile_tensors(1)
+    band_rows = 10 * TILE
+    band_eq = {}
+    for row0 in (0, 10):
+        start, src = ttk.band_tile_maps(tt, row0, 10)
+        maps = (tile[0], torch.from_numpy(start).to(dev),
+                torch.from_numpy(src).to(dev))
+        d = ppm.make_eye_pass(
+            pt_cam, PPM_SIZE, PPM_SIZE, PPM_BOUNCES, PPM_PHOTONS, pt_scene,
+            1, pt_mesh, maps, band_rows=band_rows,
+            row0=row0 * TILE).primary(0)[2][:band_rows * PPM_SIZE]
+        d = d.contiguous()
+        got = ttk.intersect_tile_tris(*maps, d, PPM_SIZE)
+        want = ttk.intersect_tile_tris_plain(*maps, d, PPM_SIZE)
+        band_eq[f"tile_rows_{row0}_{row0 + 9}"] = dict(
+            tiles=len(start) - 1, chunks=len(src),
+            equal=all(bool(torch.equal(g.isnan(), w.isnan())
+                           and torch.equal(g.nan_to_num(0), w.nan_to_num(0)))
+                      for g, w in zip(got, want)),
+            hits=int((got[0] < ttk.BIG).sum()))
+    phase("multi_device_world1", backend=backend, equal=json.dumps(eq),
+          tile_kernel_on_band_maps=json.dumps(band_eq),
+          segments=segs, segments_ganesha_pt=segs_pt,
+          launches=json.dumps(launches),
+          seconds=f"{time.perf_counter() - t0:.3f}", gpu=json.dumps(smi))
+    require(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+            f"world-1 group on {backend}")
+    require(all(eq.values()), f"a world-1 or band render differs: {eq}")
+    require(all(b["equal"] for b in band_eq.values()),
+            f"the tile kernel differs on band maps: {band_eq}")
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel did not run in the group of one: {launches}")
+
+    # --- 14b. two gloo ranks on the one card -------------------------------
+    # one spawn: the path tracer's splits, then cornell at 600x600 with the
+    # replicated, sharded and ring maps (each rank's ring band 320 rows)
+    # and the ganesha ring
+    t0 = time.perf_counter()
+    canon = dict(kind="pt", scene="shirley", width=WIDTH, height=HEIGHT,
+                 spp=SPP, bounces=BOUNCES, renders=3)
+    base = dict(kind="ppm", scene="cornell", width=PPM_SIZE,
+                height=PPM_SIZE, iterations=iters, photons=PPM_PHOTONS,
+                bounces=PPM_BOUNCES)
+    out = group.spawn(
+        "chip_smoke:rank_runs", 2, dev.type, "gloo", rdv,
+        [dict(canon, dp=1, sp=2), dict(canon, dp=2, sp=1),
+         dict(canon, scene="ganesha_pt", ply=GANESHA_PLY, width=PT_SIZE,
+              height=PT_SIZE, spp=PT_SPP, bounces=PT_BOUNCES, dp=1, sp=2),
+         dict(base, shard=False), dict(base, shard=True),
+         dict(base, shard="ring"),
+         dict(base, scene="ganesha", ply=GANESHA_PLY, shard="ring")])
+    pt_out, ppm_out = out[:3], out[3:]
+    (sp2, dp2, pt2) = pt_out
+    eq = {"shirley_1x2": (bool(torch.equal(sp2["img"], img4.cpu()))
+                          and sp2["segments"] == segs4),
+          "shirley_2x1_segments": dp2["segments"] == segs4,
+          "ganesha_pt_1x2": (bool(torch.equal(pt2["img"], img13.cpu()))
+                             and pt2["segments"] == segs13)}
+    dp_err = float((dp2["img"] - img4.cpu()).abs().max())
+    phase("multi_device_ranks_pt", ranks=2, backend="gloo",
+          equal=json.dumps(eq),
+          shirley_2x1_max_abs_err=f"{dp_err:.3e}",
+          walls_s=json.dumps({k: [[round(w, 4) for w in ws]
+                                  for ws in o["walls"]]
+                              for k, o in zip(("1x2", "2x1", "pt_1x2"),
+                                              pt_out)}),
+          launches=json.dumps({k: o["launches"] for k, o in
+                               zip(("1x2", "2x1", "pt_1x2"), pt_out)}),
+          gpu=json.dumps(smi))
+    require(all(eq.values()) and dp_err <= 1e-5,
+            f"a two-rank render differs: {eq}, dp max err {dp_err}")
+
+    rep, host, ring, g_ring = ppm_out
+    close = lambda a, b: bool(torch.allclose(a, b, atol=1e-6, rtol=1e-4))
+    eq = {"replicated_world1": bool(torch.equal(rep["img"], want_rep)),
+          "sharded_vs_replicated": close(host["img"], rep["img"]),
+          "ring_vs_replicated": close(ring["img"], rep["img"]),
+          "ganesha_ring_vs_world1": close(g_ring["img"], want_g),
+          "lengths": all(o["photon_map_lengths"] == cornell_lengths[:iters]
+                         for o in (rep, host, ring))}
+    names = ("replicated", "sharded", "ring", "ganesha_ring")
+    phase("multi_device_ranks_ppm", ranks=2, backend="gloo",
+          equal=json.dumps(eq),
+          max_abs_err=json.dumps({n: float((o["img"] - rep["img"]).abs()
+                                           .max()) for n, o in
+                                  zip(names[1:3], (host, ring))}),
+          ganesha_ring_max_abs_err=float((g_ring["img"] - want_g).abs()
+                                         .max()),
+          photon_map_lengths=json.dumps(rep["photon_map_lengths"]),
+          deposit_rows=json.dumps(rep["deposit_rows"]),
+          ring_hop_ms=json.dumps({n: o["hop_ms"] for n, o in
+                                  zip(names, ppm_out)}),
+          walls_s=json.dumps({n: [round(w, 4) for w in o["walls"]]
+                              for n, o in zip(names, ppm_out)}),
+          launches=json.dumps({n: o["launches"]
+                               for n, o in zip(names, ppm_out)}),
+          seconds=f"{time.perf_counter() - t0:.3f}", gpu=json.dumps(smi))
+    require(all(eq.values()), f"a two-rank photon map differs: {eq}")
+
+    # --- 14c. the CLI under torchrun ---------------------------------------
+    t0 = time.perf_counter()
+    png = os.path.join(OUT, "cornell_ring_torchrun.png")
+    if os.path.exists(png):
+        os.remove(png)
+    cli = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node=1", "-m", "pathtracer_tpu_torch", "cornell-box",
+         "-width", str(PPM_SIZE), "-height", str(PPM_SIZE), "-iterations",
+         "2", "-shard-photon-map", "ring", "-no-progress", "-device",
+         dev.type, "-o", png],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    require(cli.returncode == 0,
+            f"torchrun CLI failed:\n{cli.stdout}\n{cli.stderr}")
+    said = [ln for ln in cli.stdout.splitlines() if ln.startswith("backend")]
+    size = png_size(png)
+    phase("multi_device_torchrun", said=json.dumps(said),
+          png=os.path.relpath(png, ROOT), size=f"{size[0]}x{size[1]}",
+          seconds=f"{time.perf_counter() - t0:.3f}")
+    require(size == (PPM_SIZE, PPM_SIZE), f"PNG is {size}")
+    require(said and said[0].startswith("backend = nccl")
+            or dev.type != "cuda",
+            f"torchrun CLI backend: {said}")
+    rank_launches = {}
+    for o in out:
+        for per_rank in o["launches"]:
+            for k, n in per_rank.items():
+                rank_launches[k] = rank_launches.get(k, 0) + n
+    require(all(rank_launches.pop(k) == 0 for k in no_path_kernels()),
+            f"a rank launched a kernel of no path: {rank_launches}")
+    phase("multi_device", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    return launches, rank_launches
 
 
 def entry(name, source, replaces, err, kms, pms, **kw):
@@ -2371,10 +2711,14 @@ def main() -> None:
           said=json.dumps(cli.stdout.strip().splitlines()[-1]))
     require(size == (WIDTH, HEIGHT), f"PNG is {size}")
 
-    ppm_kernels, ppm_launches, raster = ppm_phases(torch, np, dev, smi)
+    ppm_kernels, ppm_launches, raster, cornell_lengths = ppm_phases(
+        torch, np, dev, smi)
 
     mesh_kernels, mesh_launches, pt_launches, pt = mesh_phases(
         torch, np, dev, smi)
+
+    md_launches, md_rank_launches = multi_device_phases(
+        torch, np, dev, smi, (img_t, segments), pt, cornell_lengths)
 
     # bounds of the PT kernels: bounce 1 (full) reads state (10 planes),
     # radiance (3), offsets and the hierarchy, writes state and radiance,
@@ -2395,7 +2739,6 @@ def main() -> None:
         entry("fused_bounce", "fused_bounce.cu",
               "pallas/fused_bounce_kernel.py:123", fb_err, *fb_times[1],
               **fb_bound, shape="shirley bounce 1 (full), 194560 lanes",
-              launches=launches["fused_bounce"],
               device_ms=fb_dev[1],
               bound_ms_brute=fb_cull[1]["bound_brute"]["bound_ms"],
               device_ms_by_bounce=[round(fb_dev[b], 4)
@@ -2405,19 +2748,25 @@ def main() -> None:
               bound_ms_listed_bounce0=fb0_bound["bound_ms"]),
         entry("compact_blocks", "compact.cu", "pallas/compact_kernel.py:129",
               ck_err, ck_ms, ck_plain_ms, **ck_bound,
-              shape="shirley bounce 3, 194560 lanes",
-              launches=launches["compact_blocks"]),
+              shape="shirley bounce 3, 194560 lanes"),
     ]
-    # the pool, gather and mesh kernels run on the cornell, ganesha and
-    # path-traced ganesha paths: launches is the sum of the runs of the
-    # paths each is on, each read on its own; the path-traced render's
-    # numbers join the entries of its four kernels
-    paths = {"cornell": ppm_launches, "ganesha": mesh_launches,
-             "ganesha_pt": pt_launches}
-    for k in ppm_kernels + mesh_kernels:
+    # every kernel of a render path runs on the one-process paths of
+    # phases 4, 7, 11 and 13 it is on, and on phase 14's group of one (in
+    # this process) and ranks (each rank's counts, read around its renders,
+    # summed): launches is the sum of its one-process paths' runs, as
+    # before phase 14, each read on its own; launches_by_path holds every
+    # path's count, phase 14's too. The path-traced render's numbers join
+    # the entries of its four kernels
+    paths = {"shirley": launches, "cornell": ppm_launches,
+             "ganesha": mesh_launches, "ganesha_pt": pt_launches}
+    multi = {"multi_device": md_launches,
+             "multi_device_ranks": md_rank_launches}
+    for k in kernels + ppm_kernels + mesh_kernels:
         by_path = {p: counts[k["name"]] for p, counts in paths.items()
                    if k["name"] in counts}
-        k.update(launches=sum(by_path.values()), launches_by_path=by_path)
+        k.update(launches=sum(by_path.values()), launches_by_path={
+            **by_path, **{p: counts[k["name"]] for p, counts in
+                          multi.items()}})
     by_name = {k["name"]: k for k in ppm_kernels + mesh_kernels}
     for name, key in (("intersect_spheres", "spheres_b1"),
                       ("intersect_tris", "tris_b1")):
@@ -2463,9 +2812,9 @@ def main() -> None:
               device_ms=cl_dev),
         raster,
     ]
-    # the kernels on no path: their counts as read around each of the five
-    # main-path renders
-    require(len(NO_PATH_LAUNCHES) == 5,
+    # the kernels on no path: their counts as read around each of the six
+    # main-path runs in this process
+    require(len(NO_PATH_LAUNCHES) == 6,
             f"no-path counts read around {sorted(NO_PATH_LAUNCHES)}")
     for k in kernels[-2:]:
         by_path = {p: counts[k["name"]]

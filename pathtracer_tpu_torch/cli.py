@@ -14,13 +14,21 @@ cornell-box and ganesha take the JAX CLI's PPM flags (add_ppm_args, both
 renders with the plain versions. ganesha adds -ganesha-ply and
 -stop-after-bvh and prints the mesh's build statistics as the JAX CLI does;
 the BVH is built on the host (native/, g++). ply-describe prints a PLY
-file's header and columns. -shard-photon-map (multi-device) is not ported
-yet.
+file's header and columns.
+
+Under torchrun (WORLD_SIZE set) cornell-box and ganesha render on the
+group of its processes (parallel.group.init: NCCL on cuda:LOCAL_RANK, or
+gloo with -device cpu), with PPMRenderer's photon map as
+-shard-photon-map picks it: absent, the replicated map; bare or 'host',
+per-rank sub-grids (shard_photon_map=True); 'ring', the ring
+(parallel/ppm_ring.py). Rank 0 alone prints and writes. Without torchrun
+there is one process and no group, and the flag changes nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -138,6 +146,45 @@ def add_ppm_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-device", "--device", default="cuda",
                    help="torch device to render on (default cuda; cpu "
                         "renders with the kernels' plain versions)")
+    p.add_argument("-shard-photon-map", "--shard-photon-map", nargs="?",
+                   const="host", default=None, choices=("host", "ring"),
+                   help="multi-process (torchrun): keep each rank's photons "
+                        "in its own sub-grid (photon-map memory per device "
+                        "scales 1/n). 'host' (the default when given bare) "
+                        "gathers every band's partial flux on every rank; "
+                        "'ring' passes the sub-grids round the ranks")
+
+
+def _shard_mode(args):
+    """The flag as PPMRenderer.shard_photon_map: absent -> False (the
+    replicated map), bare or 'host' -> True, 'ring' -> 'ring'."""
+    if args.shard_photon_map is None:
+        return False
+    return "ring" if args.shard_photon_map == "ring" else True
+
+
+def _ppm_group(device: torch.device):
+    """(device, the "pp" group, lead) of this process: under torchrun the
+    group of its processes on cuda:LOCAL_RANK (NCCL) or the CPU (gloo),
+    else (device, None, True)."""
+    if "WORLD_SIZE" not in os.environ:
+        return device, None, True
+    import torch.distributed as dist
+
+    from .parallel import group
+    from .parallel.ppm_ring import make_ppm_mesh
+    device = group.init(device.type)
+    if dist.get_rank() == 0:
+        print(f"backend = {dist.get_backend()}, world = "
+              f"{dist.get_world_size()}", flush=True)
+    return (device, make_ppm_mesh(device.type).get_group("pp"),
+            dist.get_rank() == 0)
+
+
+def _leave(group) -> None:
+    if group is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 def run_cornell(argv=None) -> None:
@@ -148,6 +195,7 @@ def run_cornell(argv=None) -> None:
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     _require_cuda_if_asked(device)
+    device, group, lead = _ppm_group(device)
 
     from .models import cornell
     from .ppm import PPMRenderer
@@ -158,9 +206,12 @@ def run_cornell(argv=None) -> None:
                            iterations=args.iterations,
                            photon_count=args.photon_count, alpha=args.alpha,
                            max_bounces=args.max_bounces,
-                           verbose=not args.no_progress)
+                           verbose=not args.no_progress, group=group,
+                           shard_photon_map=_shard_mode(args))
     renderer.render(output=args.output, checkpoint_path=args.checkpoint)
-    print(f"render time = {(time.monotonic() - t0) * 1e3:.3f} ms")
+    if lead:
+        print(f"render time = {(time.monotonic() - t0) * 1e3:.3f} ms")
+    _leave(group)
 
 
 def run_ganesha(argv=None) -> None:
@@ -175,39 +226,44 @@ def run_ganesha(argv=None) -> None:
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     _require_cuda_if_asked(device)
+    device, group, lead = _ppm_group(device)
+    out = print if lead else (lambda *a, **k: None)
 
     from .models import ganesha
     from .ppm import PPMRenderer
 
-    print(f"dim = {args.width} x {args.height};")
+    out(f"dim = {args.width} x {args.height};")
     t_total = time.monotonic()
     t0 = time.monotonic()
     scene, cam, lights, mesh = ganesha.build(
         args.ganesha_ply, args.width / args.height, device)
     build_ms = (time.monotonic() - t0) * 1e3
-    print(f"#triangles = {mesh.n_tris}")
-    print(f"tree depth = {mesh.depth}")
-    print(f"build time = {build_ms:.3f} ms")
+    out(f"#triangles = {mesh.n_tris}")
+    out(f"tree depth = {mesh.depth}")
+    out(f"build time = {build_ms:.3f} ms")
     bvh_bytes = (mesh.meta_np.nbytes + 2 * mesh.meta_np.shape[0] * 12
                  + 3 * mesh.n_tris * 12)
-    print(f"bvh bytes = {bvh_bytes}  "
-          f"(the reference prints Obj.reachable_words here)")
+    out(f"bvh bytes = {bvh_bytes}  "
+        f"(the reference prints Obj.reachable_words here)")
     hist = mesh.leaf_histogram()
-    print("leaf lengths =")
-    print(" ".join(f"((size {s})(count {c}))" for s, c in hist.items()))
+    out("leaf lengths =")
+    out(" ".join(f"((size {s})(count {c}))" for s, c in hist.items()))
     if args.stop_after_bvh:
-        print("Stop after bvh build")
+        out("Stop after bvh build")
+        _leave(group)
         return
     lo, hi = mesh.bbox_lo, mesh.bbox_hi
-    print(f"ganesha bbox = ((min({lo[0]:.6g} {lo[1]:.6g} {lo[2]:.6g}))"
-          f"(max({hi[0]:.6g} {hi[1]:.6g} {hi[2]:.6g})))")
+    out(f"ganesha bbox = ((min({lo[0]:.6g} {lo[1]:.6g} {lo[2]:.6g}))"
+        f"(max({hi[0]:.6g} {hi[1]:.6g} {hi[2]:.6g})))")
     renderer = PPMRenderer(scene, cam, lights, args.width, args.height,
                            iterations=args.iterations,
                            photon_count=args.photon_count, alpha=args.alpha,
                            max_bounces=args.max_bounces,
-                           verbose=not args.no_progress, mesh=mesh)
+                           verbose=not args.no_progress, mesh=mesh,
+                           group=group, shard_photon_map=_shard_mode(args))
     renderer.render(output=args.output, checkpoint_path=args.checkpoint)
-    print(f"elapsed ms: {(time.monotonic() - t_total) * 1e3:.3f}")
+    out(f"elapsed ms: {(time.monotonic() - t_total) * 1e3:.3f}")
+    _leave(group)
 
 
 def run_ply_describe(argv=None) -> None:

@@ -203,17 +203,20 @@ def _default_compact_at(max_bounces: int) -> tuple[int, ...]:
     return (3,) if max_bounces <= 8 else (2, 4)
 
 
-def tile_sphere_lists(camera, center, radius, valid, width, height):
+def tile_sphere_lists(camera, center, radius, valid, width, height,
+                      tile_rows=None):
     """Frustum-cull the sphere set per 32x32 image tile (host numpy, f64).
 
     Copy of the JAX integrator.tile_sphere_lists. Returns (lists (T, K)
     int32, counts (T, 1) int32): ascending global sphere indices per tile,
     counts padded to a multiple of LIST_UNROLL with duplicates of the first
-    entry (a duplicate can never steal the strict-< minimum)."""
+    entry (a duplicate can never steal the strict-< minimum). tile_rows
+    (default ceil(height/32)) may exceed the image: a band that overhangs
+    the image bottom then has lists too (its rays are dead)."""
     center = np.asarray(center, np.float64)
     radius = np.asarray(radius, np.float64)
     valid = np.asarray(valid, bool)
-    tyn = -(-height // TILE)
+    tyn = tile_rows if tile_rows is not None else -(-height // TILE)
     txn = -(-width // TILE)
     planes = tile_frustum_planes(camera, width, height, txn, tyn,
                                  flip_y=True, tile=TILE)  # (T, 4, 3)
@@ -329,12 +332,21 @@ class Renderer(torch.nn.Module):
     parity path (False). sphere_bvh: build_sphere_bvh of the scene's sphere
     table, or None to build it at the first pass on the card
     (sphere_hierarchy). forward(progress=None) -> (image (H, W, 3) f32 on
-    the device, segments traced, int)."""
+    the device, segments traced, int).
+
+    tile_row0, band_tile_rows: trace the band of tile rows [tile_row0,
+    tile_row0 + band_tile_rows) only (default: from tile_row0 to the
+    image's last tile row); rows past the image are dead lanes. band_sums
+    and band_image give the band's raw sums before any film step (the
+    sharded render, parallel/mesh.py). Each lane's result does not depend
+    on the band it is traced in, so stitched bands equal the whole image
+    bit for bit."""
 
     def __init__(self, scene: Scene, camera: Camera, background, width: int,
                  height: int, spp: int, max_bounces: int, device,
                  fuse_bounce: bool = True,
-                 sphere_bvh: SphereBVH | None = None):
+                 sphere_bvh: SphereBVH | None = None, tile_row0: int = 0,
+                 band_tile_rows: int | None = None):
         super().__init__()
         self.fuse_bounce = fuse_bounce
         self._sphere_bvh = sphere_bvh
@@ -344,28 +356,35 @@ class Renderer(torch.nn.Module):
         self.spp, self.max_bounces = spp, max_bounces
         self.sampler = Sampler(2 + 2 * max_bounces)
 
-        # 32x32-tile-major ray order: ray i of tile t is pixel
-        # (ty*32 + i // 32, tx*32 + i % 32); edge tiles clamp and mask
+        # 32x32-tile-major ray order: ray i of band tile t is pixel
+        # ((tile_row0 + ty)*32 + i // 32, tx*32 + i % 32); edge tiles clamp
+        # and mask
         self.tyn, self.txn = -(-height // TILE), -(-width // TILE)
-        ty, tx, iy, ix = np.meshgrid(np.arange(self.tyn), np.arange(self.txn),
-                                     np.arange(TILE), np.arange(TILE),
-                                     indexing="ij")
+        self.tile_row0 = tile_row0
+        self.band = (self.tyn - tile_row0 if band_tile_rows is None
+                     else band_tile_rows)
+        ty, tx, iy, ix = np.meshgrid(
+            np.arange(tile_row0, tile_row0 + self.band), np.arange(self.txn),
+            np.arange(TILE), np.arange(TILE), indexing="ij")
         y_ord = (ty * TILE + iy).reshape(-1)
         x_ord = (tx * TILE + ix).reshape(-1)
         valid = (y_ord < height) & (x_ord < width)
         y_c = np.minimum(y_ord, height - 1)
         x_c = np.minimum(x_ord, width - 1)
+        self.band_pixels = int(valid.sum())
         lists, counts = tile_sphere_lists(
             camera, scene.center.cpu().numpy(), scene.radius.cpu().numpy(),
-            scene.valid.cpu().numpy(), width, height)
+            scene.valid.cpu().numpy(), width, height,
+            tile_rows=tile_row0 + self.band)
+        first = tile_row0 * self.txn
 
         buf = lambda name, x: self.register_buffer(
             name, torch.as_tensor(x).to(device))
         buf("sph_table", pack_spheres(scene.center, scene.radius,
                                       scene.valid))
         buf("pack_table", pack_material_tables(scene.shade_pack))
-        buf("lists", lists)
-        buf("counts", counts)
+        buf("lists", np.ascontiguousarray(lists[first:]))
+        buf("counts", np.ascontiguousarray(counts[first:]))
         buf("pix", (y_c * width + x_c).astype(np.int64))
         buf("x_c", x_c.astype(np.float32))
         buf("y_c", y_c.astype(np.float32))
@@ -404,25 +423,41 @@ class Renderer(torch.nn.Module):
                                sphere_bvh=self.sphere_hierarchy(),
                                fuse_bounce=self.fuse_bounce)
 
-    def untile(self, planes: torch.Tensor) -> torch.Tensor:
-        """(3, rows, 128) tile-major radiance planes -> (H, W, 3)."""
-        img = planes.reshape(3, -1).T.reshape(self.tyn, self.txn, TILE,
-                                              TILE, 3)
-        img = img.permute(0, 2, 1, 3, 4).reshape(self.tyn * TILE,
-                                                 self.txn * TILE, 3)
-        return img[:self.height, :self.width]
-
     @torch.no_grad()
-    def forward(self, progress=None):
+    def band_sums(self, pass_ids, progress=None):
+        """The band's radiance summed over the passes `pass_ids` in their
+        order, (3, rows, 128) tile-major, and the segments traced (a 0-dim
+        int64 tensor). progress, if given, is called with the band's pixel
+        count after each pass."""
         sums = torch.zeros(3, self.pix.numel() // LANES, LANES,
                            dtype=torch.float32, device=self.pix.device)
         segments = torch.zeros((), dtype=torch.int64, device=self.pix.device)
-        for p in range(self.spp):
+        for p in pass_ids:
             rad, segs = self.trace_pass(p)
             sums += rad
             segments += segs
             if progress is not None:
-                progress(self.width * self.height)
+                progress(self.band_pixels)
+        return sums, segments
+
+    def band_image(self, planes: torch.Tensor) -> torch.Tensor:
+        """(3, rows, 128) tile-major planes -> the band's (band*32, W, 3)
+        rows, contiguous (the film's input layout, whatever the band)."""
+        img = planes.reshape(3, -1).T.reshape(self.band, self.txn, TILE,
+                                              TILE, 3)
+        img = img.permute(0, 2, 1, 3, 4).reshape(self.band * TILE,
+                                                 self.txn * TILE, 3)
+        return img[:, :self.width].contiguous()
+
+    def untile(self, planes: torch.Tensor) -> torch.Tensor:
+        """(3, rows, 128) tile-major radiance planes -> the band's rows
+        inside the image; (H, W, 3) for the whole image."""
+        return self.band_image(planes)[:max(0, self.height
+                                                - TILE * self.tile_row0)]
+
+    @torch.no_grad()
+    def forward(self, progress=None):
+        sums, segments = self.band_sums(range(self.spp), progress)
         img = film.finalize(film.apply_filter(self.untile(sums), self.kern2d),
                             self.spp)
         return img, int(segments)
@@ -480,38 +515,51 @@ class MeshRenderer(torch.nn.Module):
     device, film reconstruction. forward(progress=None) -> (image (H, W, 3)
     f32 on the device, segments traced, int, read once at the end).
 
-    Lanes are in raster order, lane = y * W + x, over ceil(H/32)*32 rows,
-    padded to a multiple of 1024; lanes past the image are dead. The JAX
-    package orders its TPU lanes tile-major; the tile-culled kernel here
-    reads and writes raster lanes (ops/cuda/tile_tri_kernel.py), so this
-    layout needs no lane permutation around it, and each lane's result
-    does not depend on the order. Bounce 0 meets the mesh through that
-    kernel over a table built once per renderer with the path tracer's
-    film map (flip_y=True), back-face culled when the mesh is watertight;
-    bounces >= 1 walk the mesh's BVH8 table."""
+    Lanes are in raster order over the band's rows, lane = (y - y0) * W +
+    x, padded to a multiple of 1024; lanes past the image are dead. The
+    band is the tile rows [tile_row0, tile_row0 + band_tile_rows) (default:
+    from tile_row0 to the image's last tile row; y0 = 32 * tile_row0), so
+    the whole image has ceil(H/32)*32 rows. The JAX package orders its TPU
+    lanes tile-major; the tile-culled kernel here reads and writes raster
+    lanes (ops/cuda/tile_tri_kernel.py), so this layout needs no lane
+    permutation around it, and each lane's result does not depend on the
+    order or on the band. Bounce 0 meets the mesh through that kernel over
+    a table built once per renderer with the path tracer's film map
+    (flip_y=True), back-face culled when the mesh is watertight, and the
+    band's maps of it (band_tile_maps); bounces >= 1 walk the mesh's BVH8
+    table. band_sums and band_image give the band's raw sums before any
+    film step (the sharded render, parallel/mesh.py)."""
 
     def __init__(self, scene: Scene, camera: Camera, background, width: int,
-                 height: int, spp: int, max_bounces: int, device, mesh):
+                 height: int, spp: int, max_bounces: int, device, mesh,
+                 tile_row0: int = 0, band_tile_rows: int | None = None):
         super().__init__()
         self.scene, self.camera, self.mesh = scene, camera, mesh
         self.background = background
         self.width, self.height = width, height
         self.spp, self.max_bounces = spp, max_bounces
         self.sampler = Sampler(2 + 2 * max_bounces)
-        self.rows = -(-height // TILE) * TILE
+        self.tile_row0 = tile_row0
+        self.band = (-(-height // TILE) - tile_row0 if band_tile_rows is None
+                     else band_tile_rows)
+        self.rows = self.band * TILE
         lanes = -(-(self.rows * width) // 1024) * 1024
         self.tile_table = ttk.build_tile_tri_table(
             camera, mesh.tri_a, mesh.tri_e1, mesh.tri_e2, width, height,
             bvh=mesh, backface_cull=mesh.watertight, flip_y=True)
         lane = np.arange(lanes)
+        y = tile_row0 * TILE + lane // width
+        alive0 = (lane < self.rows * width) & (y < height)
+        self.band_pixels = int(alive0.sum())
         buf = lambda name, x: self.register_buffer(
             name, torch.as_tensor(x).to(device))
-        buf("lane", lane.astype(np.int64))
+        buf("lane", (tile_row0 * TILE * width + lane).astype(np.int64))
         buf("x", (lane % width).astype(np.float32))
-        buf("y", (lane // width).astype(np.float32))
-        buf("alive0", lane < width * height)
-        for name, x in zip(("tile", "tile_start", "tile_src"),
-                           self.tile_table.tensors("cpu")):
+        buf("y", y.astype(np.float32))
+        buf("alive0", alive0)
+        buf("tile", self.tile_table.table)
+        for name, x in zip(("tile_start", "tile_src"), ttk.band_tile_maps(
+                self.tile_table, tile_row0, self.band)):
             buf(name, x)
         buf("kern2d", film.binomial_kernel_2d(order=5, pixel_radius=1)
             .astype(np.float32))
@@ -543,23 +591,37 @@ class MeshRenderer(torch.nn.Module):
                      self.max_bounces, self.background, alive, self.mesh,
                      self.mesh_intersect0)
 
-    def image(self, rad: torch.Tensor) -> torch.Tensor:
-        """(lanes, 3) raster radiance -> (H, W, 3)."""
-        return rad[:self.width * self.height].reshape(self.height,
-                                                      self.width, 3)
-
     @torch.no_grad()
-    def forward(self, progress=None):
+    def band_sums(self, pass_ids, progress=None):
+        """The band's radiance summed over the passes `pass_ids` in their
+        order, (lanes, 3) in raster order, and the segments traced (a 0-dim
+        int64 tensor). progress, if given, is called with the band's pixel
+        count after each pass."""
         sums = torch.zeros(self.lane.shape[0], 3, dtype=torch.float32,
                            device=self.lane.device)
         segments = torch.zeros((), dtype=torch.int64,
                                device=self.lane.device)
-        for p in range(self.spp):
+        for p in pass_ids:
             rad, segs = self.trace_pass(p)
             sums += rad
             segments += segs
             if progress is not None:
-                progress(self.width * self.height)
+                progress(self.band_pixels)
+        return sums, segments
+
+    def band_image(self, rad: torch.Tensor) -> torch.Tensor:
+        """(lanes, 3) raster radiance -> the band's (band*32, W, 3) rows."""
+        return rad[:self.rows * self.width].reshape(self.rows, self.width, 3)
+
+    def image(self, rad: torch.Tensor) -> torch.Tensor:
+        """(lanes, 3) raster radiance -> the band's rows inside the image;
+        (H, W, 3) for the whole image."""
+        return self.band_image(rad)[:max(0, self.height
+                                         - TILE * self.tile_row0)]
+
+    @torch.no_grad()
+    def forward(self, progress=None):
+        sums, segments = self.band_sums(range(self.spp), progress)
         img = film.finalize(film.apply_filter(self.image(sums), self.kern2d),
                             self.spp)
         return img, int(segments)

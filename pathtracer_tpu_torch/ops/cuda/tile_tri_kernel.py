@@ -5,9 +5,10 @@ and the nearest-hit kernel.
 Port of pathtracer_tpu/ops/pallas/tile_tri_kernel.py: TileTriTable,
 build_tile_tri_table (the BVH-guided cull and the back-face cull, in
 either film map (flip_y); the brute-force sgemm cull is not ported, so a
-MeshBVH is required), lane_maps, and intersect_tile_tris_pallas as
-`intersect_tile_tris`, which launches csrc/intersect_tile_tris.cu for CUDA
-tensors and runs `intersect_tile_tris_plain` for CPU tensors.
+MeshBVH is required), band_chunk_maps as band_tile_maps, lane_maps,
+and intersect_tile_tris_pallas as `intersect_tile_tris`, which launches
+csrc/intersect_tile_tris.cu for CUDA tensors and runs
+`intersect_tile_tris_plain` for CPU tensors.
 `intersect_band` gives its hits in make_intersector's mesh_intersect
 contract, for both renderers.
 
@@ -45,8 +46,8 @@ from ..frustum import tile_frustum_planes
 from .sphere_kernel import BIG
 
 __all__ = ["TILE", "CHUNK", "TileTriTable", "build_tile_tri_table",
-           "lane_maps", "intersect_tile_tris", "intersect_tile_tris_plain",
-           "intersect_band"]
+           "band_tile_maps", "lane_maps", "intersect_tile_tris",
+           "intersect_tile_tris_plain", "intersect_band"]
 
 _EPS = float(np.float32(1e-6))
 TILE = 32
@@ -176,6 +177,27 @@ def build_tile_tri_table(camera, tri_a, tri_e1, tri_e2, width: int,
     return TileTriTable(table=table, tile_chunk_start=tile_chunk_start,
                         tile_chunk_src=chunk_src, tx_n=tx_n, ty_n=ty_n,
                         width=width, height=height)
+
+
+def band_tile_maps(tt: TileTriTable, tile_row0: int, band_tile_rows: int):
+    """The CSR maps of one band of tile rows [tile_row0, tile_row0 +
+    band_tile_rows): (tile_chunk_start (n+1,) rebased to 0,
+    tile_chunk_src) int32 over the band's n = band_tile_rows * tx_n tiles,
+    the table's own chunk sources for the tiles inside the image and one
+    entry, the zero chunk, for each tile row past it. The port of JAX
+    band_chunk_maps in CSR form: the kernel runs over every chunk of
+    tile_chunk_src and gives chunk c to the last tile t with start(t) <= c,
+    so the sources are cut to the band's, not the starts alone."""
+    rows_in = max(0, min(tile_row0 + band_tile_rows, tt.ty_n) - tile_row0)
+    g0 = min(tile_row0, tt.ty_n) * tt.tx_n
+    g1 = g0 + rows_in * tt.tx_n
+    c0 = int(tt.tile_chunk_start[g0])
+    start = tt.tile_chunk_start[g0:g1 + 1] - c0
+    n_dead = (band_tile_rows - rows_in) * tt.tx_n
+    start = np.concatenate([start, start[-1] + np.arange(1, n_dead + 1)])
+    src = np.concatenate([tt.tile_chunk_src[c0:int(tt.tile_chunk_start[g1])],
+                          np.full(n_dead, tt.zero_chunk, np.int64)])
+    return start.astype(np.int32), src.astype(np.int32)
 
 
 def lane_maps(width: int, band_rows: int, tx_n: int):

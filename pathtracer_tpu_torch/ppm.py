@@ -1,38 +1,45 @@
-"""Progressive photon mapping on one device.
+"""Progressive photon mapping, on one device or on a group of ranks.
 
-Port of pathtracer_tpu/ppm.py's single-device kernel tier: the lights and
-their photon budgets, the photon pass (make_photon_pass), the eye pass with
-the chunk gather (make_eye_pass with use_kernel=True) and the iteration
-loop (PPMRenderer), for sphere and triangle pools and an optional triangle
-mesh (ops.bvh.MeshBVH, the ganesha scene). Each iteration runs
+Port of pathtracer_tpu/ppm.py's kernel tier: the lights and their photon
+budgets, the photon pass (make_photon_pass), the eye pass with the chunk
+gather (make_eye_pass with use_kernel=True) and the iteration loop
+(PPMRenderer) with its multi-device modes (the JAX devices= and
+shard_photon_map=; here a process group of ranks), for sphere and triangle
+pools and an optional triangle mesh (ops.bvh.MeshBVH, the ganesha scene).
+Each iteration runs
 
   1. the photon pass: emission, then max_bounces bounces of the composite
      intersector (integrator.make_intersector; a mesh rides its BVH8 walk
      kernel) and the scatter, with a fixed deposit slot per (bounce, lane)
-     and Russian roulette by the albedo's largest component;
-  2. gather_kernel.build_photon_chunks over the deposits;
-  3. the eye pass over the whole image as one band: the specular walk,
-     recording each lane's first diffuse hit. In a mesh scene whose eye
-     paths all end at their first hit, the mesh's eye rays go through the
-     tile-culled triangle kernel (ops/cuda/tile_tri_kernel.py) instead of
-     the walk, over a band of ceil(H/32)*32 rows;
+     and Russian roulette by the albedo's largest component; on a group of
+     ranks each traces its own lane range;
+  2. gather_kernel.build_photon_chunks over the deposits (all of them, or
+     a rank's own: the sharded and ring maps);
+  3. the eye pass over bands of image rows (one band on one device): the
+     specular walk, recording each lane's first diffuse hit. In a mesh
+     scene whose eye paths all end at their first hit, the mesh's eye rays
+     go through the tile-culled triangle kernel
+     (ops/cuda/tile_tri_kernel.py) instead of the walk, over bands of
+     whole 32-row tile rows;
   4. the hit Morton sort and block_chunk_lists;
   5. the gather kernel, then `finish` (cone-filter normalizer 1 - 2/3, the
      disk area and 1/photon_count);
-  6. the film sum in float64 on the device, rows flipped to output order.
+  6. the bands stitched, the film sum in float64 on the device, rows
+     flipped to output order.
 
 Sampling is the JAX package's, a pure function of (iteration, offset): the
 photon sampler has D = 2 + 2*max_bounces and offsets lane +
 iteration*photon_count; the eye sampler has D = 2 + max_bounces (one
 dimension per eye bounce) and offsets pixel + iteration*W*H. So the photon
-pass runs as one call over all lanes, and checkpoint/resume is exact.
+pass splits over lanes and the eye pass over bands with no change to any
+sample, and checkpoint/resume is exact.
 The radius schedule is r^2(i) = init * (1/i) * prod_{k<i} (k+alpha)/k with
 init = ((bbox extent sum)/3 / ((W+H)/2))^2. The averaged image is written at
 gamma 1/2.2 after every iteration.
 
 Not ported: the XLA hash-grid gather (the plain chunk gather covers the
-CPU), the eye-walk compaction ladder (specular mesh scenes only), the
-sharded and ring photon maps, phase_cb and the environment knobs of the JAX
+CPU), the eye-walk compaction ladder (specular mesh scenes only), the fused
+single-chip iteration, phase_cb and the environment knobs of the JAX
 renderer.
 """
 
@@ -46,6 +53,7 @@ from typing import List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .camera import Camera
 from .integrator import make_intersector
@@ -56,10 +64,18 @@ from .ops.cuda import gather_kernel as gk
 from .ops.cuda import tile_tri_kernel as ttk
 from .ops.cuda.sphere_kernel import BIG
 from .ops.lds import M32, Sampler
+from .parallel import group as G
+from .parallel.ppm_ring import ring_eye_pass
 from .scene import TRI_MAT, Scene
 
-__all__ = ["Light", "light_photon_counts", "make_photon_pass",
-           "scene_all_diffuse", "make_eye_pass", "PPMRenderer"]
+__all__ = ["Light", "light_photon_counts", "photon_lanes", "rank_lane_range",
+           "make_photon_pass", "scene_all_diffuse", "gather_hits",
+           "make_eye_pass", "PPMRenderer"]
+
+# the eye bands of a group's replicated and sharded maps, at any world
+# size: JAX's multi-device band (pathtracer_tpu/ppm.py), so a group of n
+# renders the bands of a group of one
+GROUP_BAND_ROWS = 256
 
 _SPOT_ANGLE = 0.5 * 45.0 * math.pi / 180.0
 _SPOT_DISK_RADIUS = math.atan(_SPOT_ANGLE)  # as the reference writes it
@@ -143,19 +159,44 @@ def _emit_rays(lights, counts, starts, lane_ids, u, v):
     return org, d, flux
 
 
+def photon_lanes(lights, photon_count: int) -> int:
+    """The photon pass's lane count: the traced photons rounded up to a
+    multiple of 1024."""
+    return -(-light_photon_counts(lights, photon_count)[2] // 1024) * 1024
+
+
+def rank_lane_range(lanes: int, n: int, rank: int):
+    """Rank `rank`'s lanes [lo, hi) of n ranks: the JAX package's chunk
+    `rank` (make_photon_pass with n devices: ceil(lanes/n) rounded up to
+    1024 lanes a chunk), one chunk per rank; a range past `lanes` holds
+    only dead lanes. The JAX package also caps a chunk at 131,072 lanes (a
+    bound on one TPU call's duration); a rank here traces its one range."""
+    per = -(-lanes // n)
+    chunk = -(-per // 1024) * 1024
+    return rank * chunk, (rank + 1) * chunk
+
+
 def make_photon_pass(scene: Scene, lights, photon_count: int,
-                     max_bounces: int, mesh=None):
+                     max_bounces: int, mesh=None, lane_range=None):
     """Build trace_photons(offset_base: int) -> (pos, nrm, flux, valid,
     segments): deposits of shape (lanes * max_bounces, .) in (bounce, lane)
     order, and the ray segments traced (a 0-dim tensor);
-    trace_photons.emit(offset_base) gives the bounce-0 rays. mesh: an
-    optional ops.bvh.MeshBVH beside the scene's pools. Returns
-    (trace_photons, photons traced, deposit rows)."""
+    trace_photons.deposits(offset_base) gives the same deposits in
+    (max_bounces, lanes, .) form, before the flatten (deposits of lane
+    ranges concatenate along that lane axis to the whole trace's), and
+    trace_photons.emit(offset_base) the bounce-0 rays. mesh: an optional
+    ops.bvh.MeshBVH beside the scene's pools. lane_range: trace lanes
+    [lo, hi) only (multiples of 1024; default all), with each lane's
+    sample offsets those of the whole trace. Returns (trace_photons,
+    photons traced, deposit rows)."""
     sampler = Sampler(2 + 2 * max_bounces)
     counts, starts, total = light_photon_counts(lights, photon_count)
-    lanes = -(-total // 1024) * 1024
+    lo, hi = lane_range or (0, photon_lanes(lights, photon_count))
+    if lo % 1024 or hi % 1024 or hi < lo:
+        raise ValueError(f"make_photon_pass: lane range [{lo}, {hi}) is "
+                         "not of whole 1024-lane blocks")
     dev = scene.center.device
-    lane_ids = torch.arange(lanes, dtype=torch.int64, device=dev)
+    lane_ids = torch.arange(lo, hi, dtype=torch.int64, device=dev)
     hit_setup = make_intersector(scene, mesh)
 
     def emit(offset_base: int):
@@ -165,10 +206,10 @@ def make_photon_pass(scene: Scene, lights, photon_count: int,
                                   sampler.get(offs, 0), sampler.get(offs, 1))
         return offs, org, d, flux, lane_ids < total
 
-    def trace_photons(offset_base: int):
+    def deposits(offset_base: int):
         offs, org, d, flux, alive = emit(offset_base)
         segments = torch.zeros((), dtype=torch.int64, device=dev)
-        deposits = []
+        deps = []
         for b in range(max_bounces):
             segments += alive.sum()
             u = sampler.get(offs, 2 + 2 * b)
@@ -183,7 +224,7 @@ def make_photon_pass(scene: Scene, lights, photon_count: int,
 
             # diffuse deposit (the flux takes the albedo first)
             f_dep = flux * albedo
-            deposits.append((h["point"], h["normal"], f_dep, hit & is_diff))
+            deps.append((h["point"], h["normal"], f_dep, hit & is_diff))
 
             wo_met, met_ok, tint, wo_die = shading.specular(
                 albedo, h["ior"], h["ior_inv"], omega_i, h["hit_front"], u)
@@ -206,12 +247,16 @@ def make_photon_pass(scene: Scene, lights, photon_count: int,
             org = vec.where3(alive, new_org, org)
             d = vec.where3(alive, dir_world, d)
             flux = vec.where3(alive, f_new, flux)
-        pos, nrm, fl, valid = (torch.stack(x) for x in zip(*deposits))
+        pos, nrm, fl, valid = (torch.stack(x) for x in zip(*deps))
+        return pos, nrm, fl, valid, segments
+
+    def trace_photons(offset_base: int):
+        pos, nrm, fl, valid, segments = deposits(offset_base)
         return (pos.reshape(-1, 3), nrm.reshape(-1, 3), fl.reshape(-1, 3),
                 valid.reshape(-1), segments)
 
-    trace_photons.emit = emit
-    return trace_photons, total, lanes * max_bounces
+    trace_photons.emit, trace_photons.deposits = emit, deposits
+    return trace_photons, total, (hi - lo) * max_bounces
 
 
 def _build_grid_morton_device(pos, nrm, flux, ok, r):
@@ -249,46 +294,69 @@ def scene_all_diffuse(scene: Scene, mesh=None) -> bool:
     return mesh is None or float(mesh.mat_row[0]) == 0.0
 
 
+def gather_hits(point, normal, active, radius: float, grid):
+    """The photon flux at eye hits (n, 3), n % 1024 == 0: Morton-sort the
+    hits, gather_flux_chunks over grid = (photons_t, sbox), unsort."""
+    photons_t, sbox = grid
+    perm = torch.argsort(gk.hit_morton_keys(point, active), stable=True)
+    inv_perm = torch.empty_like(perm)
+    inv_perm[perm] = torch.arange(perm.shape[0], device=point.device)
+    flux = gk.gather_flux_chunks(point[perm], normal[perm], active[perm],
+                                 sbox, photons_t, radius)
+    return flux[inv_perm]
+
+
 def make_eye_pass(camera: Camera, width: int, height: int,
                   max_bounces: int, photon_count: int, scene: Scene,
-                  eff_bounces: int = None, mesh=None, tile=None):
+                  eff_bounces: int = None, mesh=None, tile=None,
+                  band_rows: int = None, row0: int = 0):
     """Build eye_pass(offset_base: int, radius: float, grid) -> the
-    iteration's image contribution (H, W, 3) f32, rows in camera order
-    (not flipped), scaled by 1/photon_count; grid = (photons_t, sbox) from
-    build_photon_chunks. The whole image is one band of
-    ceil(W*rows/1024)*1024 lanes (lane = y*W + x; rows = H, or
-    ceil(H/32)*32 with the tile kernel, whose lanes in rows >= H are dead).
+    iteration's image contribution of the band of image rows [row0, row0 +
+    band_rows) that lie in the image, (rows, W, 3) f32, rows in camera
+    order (not flipped), scaled by 1/photon_count; grid = (photons_t, sbox)
+    from build_photon_chunks. The band is ceil(W*band_rows/1024)*1024 lanes
+    (lane = (y - row0)*W + x, sample offset y*W + x); its lanes past the
+    image are dead. band_rows defaults to the whole image: H, or
+    ceil(H/32)*32 with the tile kernel.
 
     eff_bounces caps the specular walk: in a scene with no specular
     material every eye path ends at its first hit; the sampler keeps
     max_bounces dimensions either way. mesh: an optional ops.bvh.MeshBVH.
-    tile: (table, tile_chunk_start, tile_chunk_src) tensors of the mesh's
-    TileTriTable (TileTriTable.tensors), allowed only when eff_bounces is
-    1: the eye rays then meet the mesh through intersect_tile_tris instead
-    of the walk. eye_pass.primary, .walk, .gather and .finish are the
-    stages, for tests and measurement."""
+    tile: the band's (table, tile_chunk_start, tile_chunk_src) tensors
+    (TileTriTable.tensors for the whole image, band_tile_maps for a band),
+    allowed only when eff_bounces is 1 and the band is of whole 32-row
+    tile rows: the eye rays then meet the mesh through intersect_tile_tris
+    instead of the walk. eye_pass.primary, .walk, .gather and .finish are
+    the stages, for tests, measurement and the sharded photon maps."""
     sampler = Sampler(2 + max_bounces)
     eff_bounces = max_bounces if eff_bounces is None else eff_bounces
-    rows = height
+    if band_rows is None:
+        band_rows = (height if tile is None
+                     else -(-height // ttk.TILE) * ttk.TILE)
+    rows = band_rows
     mesh_intersect = None
     if tile is not None:
         if mesh is None or eff_bounces != 1:
             raise ValueError("make_eye_pass: the tile lists need a mesh and "
                              "hold only for origin-zero primaries "
                              "(eff_bounces == 1)")
-        rows = -(-height // ttk.TILE) * ttk.TILE
+        if rows % ttk.TILE or row0 % ttk.TILE:
+            raise ValueError(f"make_eye_pass: the tile kernel takes bands of "
+                             f"whole tile rows; got rows [{row0}, "
+                             f"{row0 + rows})")
 
         def mesh_intersect(org, d, alive_m):
             # primaries start at the origin, so org is unused
             return ttk.intersect_band(tile, d, alive_m, width, rows)
 
-    n_pix = width * height
+    n_out = max(0, min(rows, height - row0))  # the band's rows in the image
     lanes = -(-(width * rows) // 1024) * 1024
     dev = scene.center.device
     lane_ids = torch.arange(lanes, dtype=torch.int64, device=dev)
+    pix = row0 * width + lane_ids
     xs = (lane_ids % width).to(torch.float32)
-    ys = (lane_ids // width).to(torch.float32)
-    alive0 = (lane_ids < n_pix) & ((lane_ids // width) < height)
+    ys = (pix // width).to(torch.float32)
+    alive0 = (lane_ids < width * n_out)
     inv_w, inv_h = _f32(1.0 / width), _f32(1.0 / height)
     inv_pc = _f32(1.0 / photon_count)
     normalizer = np.float32(1.0 - 2.0 / 3.0)
@@ -297,7 +365,7 @@ def make_eye_pass(camera: Camera, width: int, height: int,
     def primary(offset_base: int):
         """Bounce-0 eye rays: (offs, org, d, alive). Eye rays are not
         flipped; the image is."""
-        offs = (lane_ids + int(offset_base)) & M32
+        offs = (pix + int(offset_base)) & M32
         cx = (xs + sampler.get(offs, 0)) * inv_w
         cy = (ys + sampler.get(offs, 1)) * inv_h
         d = camera.ray_dirs(cx, cy)
@@ -344,16 +412,6 @@ def make_eye_pass(camera: Camera, width: int, height: int,
             beta = vec.where3(alive, beta_new, beta)
         return fd_pt, fd_nrm, fd_beta, fd_ok
 
-    def gather(point, normal, active, radius: float, grid):
-        """Morton-sort the hits, gather each one's photon flux, unsort."""
-        photons_t, sbox = grid
-        perm = torch.argsort(gk.hit_morton_keys(point, active), stable=True)
-        inv_perm = torch.empty_like(perm)
-        inv_perm[perm] = torch.arange(perm.shape[0], device=dev)
-        flux = gk.gather_flux_chunks(point[perm], normal[perm], active[perm],
-                                     sbox, photons_t, radius)
-        return flux[inv_perm]
-
     def finish(fd_beta, fd_ok, flux, radius: float):
         r = np.float32(radius)
         # a device tensor, so the division is elementwise on every device
@@ -362,15 +420,15 @@ def make_eye_pass(camera: Camera, width: int, height: int,
                              device=dev)
         contrib = fd_beta * flux / denom
         result = vec.where3(fd_ok, contrib, torch.zeros_like(contrib))
-        return (result * inv_pc)[:n_pix].reshape(height, width, 3)
+        return (result * inv_pc)[:n_out * width].reshape(n_out, width, 3)
 
     def eye_pass(offset_base: int, radius: float, grid):
         fd_pt, fd_nrm, fd_beta, fd_ok = walk(offset_base)
-        flux = gather(fd_pt, fd_nrm, fd_ok, radius, grid)
+        flux = gather_hits(fd_pt, fd_nrm, fd_ok, radius, grid)
         return finish(fd_beta, fd_ok, flux, radius)
 
     eye_pass.primary, eye_pass.walk = primary, walk
-    eye_pass.gather, eye_pass.finish = gather, finish
+    eye_pass.gather, eye_pass.finish = gather_hits, finish
     return eye_pass
 
 
@@ -386,7 +444,33 @@ class PPMRenderer:
     tile-culled kernel whenever there is a mesh and every eye path ends at
     its first hit (True, on every device), or through the walk (False).
     The tile table is built once per renderer, back-face culled when the
-    mesh is watertight."""
+    mesh is watertight.
+
+    group: the ProcessGroup of the ranks that render together, each with
+    this renderer on its own device (parallel.ppm_ring.make_ppm_mesh's
+    "pp" dimension), or None for this process alone. Rank k of n traces
+    the photon lanes rank_lane_range(lanes, n, k), and the image is cut
+    into bands: GROUP_BAND_ROWS rows (at most H, rounded up to 32 with the
+    tile kernel) whatever n is, as the JAX package's are; without a group
+    the band is the whole image. shard_photon_map picks the photon map:
+      False  - replicated: the deposits are all-gathered along the lane
+               axis (the one-device trace's order) and every rank builds
+               the same grid; band b runs on rank b % n. Equal to a group
+               of one's render, bit for bit, at any n (the chunk gather's
+               blocks are of one band's hits, so other bands, as one
+               process's whole-image band, regroup its sums);
+      True   - each rank builds a sub-grid over its own deposits; the walk
+               records of every band are all-gathered, every rank gathers
+               a partial flux against its sub-grid, and a band's owner
+               adds the partials in rank order 0..n-1;
+      "ring" - one band of ceil(H/n) rows (rounded up to 32 with the tile
+               kernel) per rank, the last ones all dead when the image has
+               fewer, the sub-grids passed round the ring
+               (parallel/ppm_ring.py).
+    True and "ring" agree with the replicated map up to the flux sum's
+    association. Every rank returns the same image sum, photon map lengths
+    and segments (the group's); rank 0 alone prints, writes the PNG and
+    the checkpoint, and every rank reads the checkpoint."""
 
     scene: Scene
     camera: Camera
@@ -400,9 +484,14 @@ class PPMRenderer:
     verbose: bool = True
     mesh: object = None
     tile_primary: bool = True
+    group: object = None
+    shard_photon_map: object = False
 
     def __post_init__(self):
         self.tile_table = self._tile = None
+        if self.shard_photon_map not in (False, True, "ring"):
+            raise ValueError(f"shard_photon_map: False, True or 'ring', not "
+                             f"{self.shard_photon_map!r}")
         if self.mesh is not None:
             lo = self.mesh.bbox_lo.astype(np.float64)
             hi = self.mesh.bbox_hi.astype(np.float64)
@@ -432,6 +521,30 @@ class PPMRenderer:
             product *= (k + self.alpha) / k
         return math.sqrt(product * self.init_radius2 / i)
 
+    def _bands(self, n, tiled: bool):
+        """(band rows, band count) of a group of n ranks, or of this
+        process alone (n None): the whole image."""
+        ring = n is not None and self.shard_photon_map == "ring"
+        rows = (self.height if n is None else -(-self.height // n) if ring
+                else min(GROUP_BAND_ROWS, self.height))
+        if tiled:
+            rows = -(-rows // ttk.TILE) * ttk.TILE
+        return rows, n if ring else -(-self.height // rows)
+
+    def _eye_pass(self, eff_bounces: int, tile, rows: int, band: int):
+        """make_eye_pass over band `band` of `rows` rows, with the band's
+        maps of the tile table when the tile kernel runs."""
+        if tile is not None:
+            tile = (tile[0],) + tuple(
+                torch.as_tensor(x, device=tile[0].device)
+                for x in ttk.band_tile_maps(self.tile_table,
+                                            band * rows // ttk.TILE,
+                                            rows // ttk.TILE))
+        return make_eye_pass(self.camera, self.width, self.height,
+                             self.max_bounces, self.photon_count, self.scene,
+                             eff_bounces, self.mesh, tile, band_rows=rows,
+                             row0=band * rows)
+
     @torch.no_grad()
     def render(self, output: str = None, checkpoint_cb=None,
                checkpoint_path: str = None):
@@ -443,23 +556,32 @@ class PPMRenderer:
 
         Afterwards self.iter_segments holds, per iteration, (photon ray
         segments as a 0-dim device tensor, eye segments or None: exact only
-        when every eye path ends at its first hit), and
-        self.photon_map_lengths the valid deposits (0-dim device
-        tensors)."""
-        if self.verbose:
+        when every eye path ends at its first hit), self.photon_map_lengths
+        the valid deposits (0-dim device tensors), and self.deposit_rows
+        this rank's deposit rows per iteration."""
+        group = self.group
+        n = 1 if group is None else dist.get_world_size(group)
+        k = 0 if group is None else dist.get_rank(group)
+        lead = k == 0
+        verbose = self.verbose and lead
+        if verbose:
             print(f"#max-bounces = {self.max_bounces}")
             print(f"#photons/iter = {self.photon_count}")
             print(f"#iterations = {self.iterations}")
             print("-----", flush=True)
-        trace_photons, _, _ = make_photon_pass(
+        lanes = photon_lanes(self.lights, self.photon_count)
+        trace_photons, _, self.deposit_rows = make_photon_pass(
             self.scene, self.lights, self.photon_count, self.max_bounces,
-            self.mesh)
+            self.mesh, lane_range=rank_lane_range(lanes, n, k))
         eff_bounces = (1 if scene_all_diffuse(self.scene, self.mesh)
                        else self.max_bounces)
-        eye_pass = make_eye_pass(self.camera, self.width, self.height,
-                                 self.max_bounces, self.photon_count,
-                                 self.scene, eff_bounces, self.mesh,
-                                 self.tile_tensors(eff_bounces))
+        tile = self.tile_tensors(eff_bounces)
+        rows, n_bands = self._bands(None if group is None else n,
+                                    tile is not None)
+        mine = list(range(k, n_bands, n))
+        eyes = {b: self._eye_pass(eff_bounces, tile, rows, b) for b in mine}
+        # one process alone: every map is the replicated one
+        mode = self.shard_photon_map if group is not None else False
         dev = self.scene.center.device
         img_sum = torch.zeros(self.height, self.width, 3,
                               dtype=torch.float64, device=dev)
@@ -471,7 +593,7 @@ class PPMRenderer:
                     and float(ck["alpha"]) == self.alpha):
                 img_sum = torch.as_tensor(ck["img_sum"], device=dev)
                 start_iter = int(ck["next_iteration"])
-                if self.verbose:
+                if verbose:
                     print(f"resuming from iteration {start_iter}", flush=True)
 
         self.iter_segments = []
@@ -479,26 +601,42 @@ class PPMRenderer:
         for i in range(start_iter, self.iterations):
             t_iter = time.monotonic()
             r = self.radius(i + 1)
-            if self.verbose:
+            if verbose:
                 print(f"#iteration = {i}, radius = {r:.3f}", flush=True)
-            pos, nrm, flux, ok, segments = trace_photons(
-                i * self.photon_count & M32)
-            n_photons = ok.sum()
-            if self.verbose:
+            deps = trace_photons.deposits(i * self.photon_count & M32)
+            segments, n_photons = deps[4], deps[3].sum()
+            if group is not None:
+                G.all_reduce_sum(segments, group)
+                G.all_reduce_sum(n_photons, group)
+            if verbose:
                 print(f"  photon map length = {int(n_photons)} "
                       f"({time.monotonic() - t_iter:.2f}s)", flush=True)
-            grid = gk.build_photon_chunks(pos, nrm, flux, ok)
-            band = eye_pass(i * self.width * self.height & M32, r, grid)
-            img_sum += band.flip(0).to(torch.float64)  # output row order
-            if self.verbose:
+            if mode is False and group is not None:
+                # the whole trace's deposits: every rank's lanes in order
+                deps = [G.all_gather_rows(x.transpose(0, 1), group)
+                        .transpose(0, 1)[:, :lanes] for x in deps[:4]]
+            grid = gk.build_photon_chunks(
+                *(x.reshape(-1, 3) if x.dim() == 3 else x.reshape(-1)
+                  for x in deps[:4]))
+            offset = i * self.width * self.height & M32
+            if mode is False:
+                bands = [eyes[b](offset, r, grid) for b in mine]
+            elif mode == "ring":
+                bands = [ring_eye_pass(eyes[k], offset, r, grid, group)]
+            else:
+                bands = self._sharded_bands(eyes, mine, n_bands, rows, offset,
+                                            r, grid)
+            img = self._stitch(bands, n_bands, rows)
+            img_sum += img.flip(0).to(torch.float64)  # output row order
+            if verbose:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 print(f"  iteration wall = "
                       f"{time.monotonic() - t_iter:.2f}s", flush=True)
-            if output is not None:
+            if output is not None and lead:
                 avg = (img_sum / (i + 1)) ** (1.0 / 2.2)  # PPM gamma 1/2.2
                 write_png(output, avg.cpu().numpy())
-            if checkpoint_path is not None:
+            if checkpoint_path is not None and lead:
                 tmp = checkpoint_path + ".tmp.npz"
                 np.savez(tmp, img_sum=img_sum.cpu().numpy(),
                          next_iteration=i + 1,
@@ -511,3 +649,51 @@ class PPMRenderer:
             if checkpoint_cb is not None:
                 checkpoint_cb(i, img_sum)
         return img_sum
+
+    def _stitch(self, bands, n_bands: int, rows: int):
+        """The image (H, W, 3) in camera row order from this rank's bands
+        (its bands b = k, k + n, ...), all-gathered over the group."""
+        group = self.group
+        mine = (torch.cat(bands) if bands else torch.zeros(
+            0, self.width, 3, device=self.scene.center.device))
+        if group is None or dist.get_world_size(group) == 1:
+            return mine
+        n = dist.get_world_size(group)
+        every = G.all_gather_rows(mine, group)
+        at, parts = 0, {}
+        for j in range(n):
+            for b in range(j, n_bands, n):
+                size = max(0, min(rows, self.height - b * rows))
+                parts[b] = every[at:at + size]
+                at += size
+        return torch.cat([parts[b] for b in range(n_bands)])
+
+    def _sharded_bands(self, eyes, mine, n_bands: int, rows: int, offset,
+                       radius: float, grid):
+        """shard_photon_map=True: this rank's band images. Every band's
+        walk records (point, normal, ok) reach every rank, each rank
+        gathers every band's partial flux against its own sub-grid, and a
+        band's owner adds the partials in rank order."""
+        group = self.group
+        n = dist.get_world_size(group)
+        walks = {b: eyes[b].walk(offset) for b in mine}
+        dev = self.scene.center.device
+        lanes = -(-(self.width * rows) // 1024) * 1024
+        rec = torch.zeros(0, 7, device=dev)
+        if mine:
+            rec = torch.cat([torch.cat([w[0], w[1], w[3][:, None].float()], 1)
+                             for w in walks.values()])
+        rec = G.all_gather_rows(rec, group).reshape(-1, lanes, 7)
+        order = [b for j in range(n) for b in range(j, n_bands, n)]
+        part = torch.cat([gather_hits(x[:, 0:3], x[:, 3:6], x[:, 6] > 0.5,
+                                      radius, grid) for x in rec])
+        part = G.all_gather_rows(part, group).reshape(n, n_bands, lanes, 3)
+        out = []
+        for b in mine:
+            t = order.index(b)
+            flux = part[0, t]
+            for j in range(1, n):
+                flux = flux + part[j, t]
+            _, _, fd_beta, fd_ok = walks[b]
+            out.append(eyes[b].finish(fd_beta, fd_ok, flux, radius))
+        return out

@@ -49,6 +49,9 @@ lanes outside the skip's proof (whose NaN inv_a is compared as equal) and
 784 full clusters, the wrapper's limit. The raster gather
 sums the chunk gather's photons in another order (rtol 1e-4, atol 1e-6).
 
+The renderers over bands of tile rows (the sharded path tracer's sp
+split) must give the whole image's sums bit for bit on the card too.
+
 The triangle kernel skips pad columns and pre-rejects pairs: it must equal
 its plain version on real columns scattered among pads (T = 45 and 1024),
 on each case its header names (tests/test_torch_tri_pads.py) and on the
@@ -531,7 +534,7 @@ def _tile_kernel_equals_plain(dev, flip_y):
     hit = got[0] < ttk.BIG
     assert 50 < int(hit.sum()) < w * h - 50
     assert not bool(got[1][~hit].any()) and not bool(got[3][~hit].any())
-    return m, d, hit
+    return m, d, hit, tt, got
 
 
 def test_intersect_tile_tris_kernel_matches_plain(dev):
@@ -542,13 +545,48 @@ def test_intersect_tile_tris_kernel_matches_plain(dev):
     _tile_kernel_equals_plain(dev, flip_y=False)
 
 
+def _equal_nan(a, b) -> bool:
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+@pytest.mark.parametrize("row0", [0, 2])
+def test_intersect_tile_tris_kernel_matches_plain_on_band_maps(dev, row0):
+    """The tile kernel over band_tile_maps (a multi-device band) of the
+    88x96 table's 3 tile rows: two tile rows from row0, all inside the
+    image (row0 = 0) or the last past it (row0 = 2: its tiles map the zero
+    chunk), on the band's primaries (past the image: any directions).
+    Equal to the plain version on the same maps, NaN counted as equal,
+    and on the rows inside the image to the whole table's result."""
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+
+    _, d, _, tt, whole = _tile_kernel_equals_plain(dev, flip_y=False)
+    w, band = 88, 2
+    start, src = ttk.band_tile_maps(tt, row0, band)
+    maps = (tt.tensors(dev)[0], torch.from_numpy(start).to(dev),
+            torch.from_numpy(src).to(dev))
+    lo = row0 * ttk.TILE * w
+    inside = min(d.shape[0], lo + band * ttk.TILE * w) - lo
+    d_band = torch.cat([d[lo:lo + inside],
+                        d[:band * ttk.TILE * w - inside]]).contiguous()
+    assert (inside < d_band.shape[0]) == (row0 == 2)
+    got = ttk.intersect_tile_tris(*maps, d_band, w)
+    want = ttk.intersect_tile_tris_plain(*maps, d_band, w)
+    assert all(_equal_nan(g, x) for g, x in zip(got, want))
+    assert all(torch.equal(g[:inside], x[lo:lo + inside])
+               for g, x in zip(got, whole))
+    assert not bool((got[0][inside:] < ttk.BIG).any())
+
+
 def test_intersect_tile_tris_kernel_matches_plain_on_a_flip_y_table(dev):
     """The same on the path tracer's film map (flip_y=True, cy = 1 - y/H):
     the kernel equals its plain version, and the flipped table's lists
     (back-face culled with flipped corners) find every hit of the walk."""
     from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
 
-    m, d, hit = _tile_kernel_equals_plain(dev, flip_y=True)
+    m, d, hit, _, _ = _tile_kernel_equals_plain(dev, flip_y=True)
     n = d.shape[0]
     walk = bw.bvh8_walk(m.table, torch.zeros_like(d), d,
                         torch.full((n,), 1e30, device=dev),
@@ -625,6 +663,48 @@ def test_ganesha_pt_card_render_matches_cpu(dev, tmp_path):
     assert abs(segs - want_segs) <= 0.005 * want_segs
     assert np.isfinite(img).all()
     assert float(np.sqrt(np.mean((img - want) ** 2))) <= 1e-3
+
+
+def _bands_stitched(make, height, sp):
+    """(whole renderer's raw image, the sp bands' raw images stitched and
+    cut to the image, and both segment counts) of make(tile_row0, band)."""
+    from pathtracer_tpu_torch.integrator import TILE
+
+    whole = make(0, None)
+    sums, segs = whole.band_sums(range(whole.spp))
+    want = whole.band_image(sums)[:height]
+    tyn = -(-height // TILE)
+    band = -(-tyn // sp)
+    parts, got_segs = [], 0
+    for s in range(sp):
+        r = make(s * band, band)
+        b_sums, b_segs = r.band_sums(range(r.spp))
+        parts.append(r.band_image(b_sums))
+        got_segs += int(b_segs)
+    return want, torch.cat(parts)[:height], int(segs), got_segs
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_bands_on_card_equal_whole_image(dev, tmp_path, sp):
+    """Renderer (shirley 128x72: the last band overhangs the image) and
+    MeshRenderer (the tiny ganesha at 64x64; sp = 4 puts two bands past
+    the image) over sp bands of tile rows on the card, each lane through
+    the kernels: the bands' raw sums, stitched, equal the whole image's
+    bit for bit, and the segments add up."""
+    from pathtracer_tpu_torch.integrator import MeshRenderer
+
+    scene, cam, bg = shirley.build(128 / 72, dev)
+    want, got, segs, got_segs = _bands_stitched(
+        lambda row0, band: Renderer(scene, cam, bg, 128, 72, 2, 8, dev,
+                                    tile_row0=row0, band_tile_rows=band),
+        72, sp)
+    assert torch.equal(got, want) and got_segs == segs > 128 * 72
+    scene, cam, bg, mesh = _tiny_ganesha_pt(dev, tmp_path)
+    want, got, segs, got_segs = _bands_stitched(
+        lambda row0, band: MeshRenderer(scene, cam, bg, 64, 64, 2, 4, dev,
+                                        mesh, tile_row0=row0,
+                                        band_tile_rows=band), 64, sp)
+    assert torch.equal(got, want) and got_segs == segs > 64 * 64
 
 
 def test_ganesha_card_render_matches_cpu(dev):
