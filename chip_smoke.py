@@ -153,19 +153,40 @@ Phases, one line each; any failure raises and the script exits non-zero:
      one ring hop's ms of a sub-grid (gloo through host memory); (c)
      `cornell-box -shard-photon-map ring` under `torchrun` (one process)
      prints `backend = nccl` and writes a 600x600 PNG.
+ 15. the BVH4 walk: (a) phase 9's triangles on the BVH4 table
+     (MeshBVH(walk="bvh4"), through models.ganesha.build): its rows,
+     node_end, stride and host build seconds; bvh4_walk against its plain
+     version (equal) on the ganesha photon bounce-0 and bounce-1 rays and
+     on the path-traced pass 0's bounce-1 and bounce-3 rays, with steps per
+     active lane, its event and device ms beside bvh8_walk's on the same
+     rays (phase 9's table), its bound, and the lanes whose hit, t or idx
+     differ from bvh8_walk's (printed, not held); then the ganesha
+     600x600 10-iteration PPM render (phase 11's gates) and the
+     path-traced 600x600 spp=8 b=8 render (phase 13's gates) on it, with
+     launches, first seconds and walls beside phases 11 and 13; (b)
+     big_ganesha subdivided 4:1 at its edge midpoints (1,797,408
+     triangles), written to chiprun_out/ (removed at the phase's end):
+     native.bvh8_table refuses it (its rows against 2^24 / 8), build_pt
+     takes the BVH4 walk (rows, table MB, host seconds of the BVH build,
+     the walk table and the tile table), the path-traced render on it
+     holds phase 13's gates, and the ganesha CLI renders it at 600x600 (2
+     iterations, map lengths printed beside the reference's) and prints
+     its statistics with -stop-after-bvh.
 Each kernel's bound_ms in the JSON line is the larger of the bytes it must
 move over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
 from this run's inputs (OPS below); for the full-variant sphere loop
 (fused_bounce, intersect_state) that is the walk's node tests and pairs,
 with the brute force's bound beside it as bound_ms_brute; for the
 clustered kernel the least of its three bounds. The clustered
-kernel and the raster gather are on no render path: their counts are set
-to 0 with the path's own before each of the six main-path runs in this
-process (4, 4b, 7, 11, 13, 14a) and around 14b's ranks' renders, read
-after it, and must stay 0. Every other kernel's launches sum its
-one-process paths' runs (4, 7, 11, 13), as before phase 14;
-launches_by_path adds 14a's and 14b's (each rank's counts, read around
-its renders, summed).
+kernel and the raster gather are on no render path, and the BVH4 walk on
+none before phase 15: their counts are set to 0 with the path's own
+before each of the six main-path runs of phases 4-14 in this process (4,
+4b, 7, 11, 13, 14a) and around 14b's ranks' renders, read after it, and
+must stay 0; around phase 15's three renders the BVH4 walk must run and
+the BVH8 walk, the clustered kernel and the raster gather must not.
+Every other kernel's launches sum its one-process paths' runs (4, 7, 11,
+13, 15), as before phase 14; launches_by_path adds 14a's and 14b's (each
+rank's counts, read around its renders, summed).
 Then a JSON line of kernel results, the nvidia-smi line, and the final
 `{"ok": true, "device": {...}}` line. Without a CUDA device, or without the
 package beside this script, it fails before printing any result.
@@ -261,11 +282,13 @@ FP32_OPS_PER_MS = 67e12 / 1e3
 # (13: d^2, n . n_p), a node row of bvh8_walk.cu (185: 9 for the ray's
 # frame, 8 children x 3 axes x 6 slab operations, 32 for the children's
 # min/max reductions), and a node test of the sphere hierarchy's walk in
-# pt_bounce.cuh or a grown-bound test of intersect_clustered.cu's walk (17).
+# pt_bounce.cuh or a grown-bound test of intersect_clustered.cu's walk (17),
+# and a node row of bvh4_walk.cu (88: 4 children x 3 axes x 6 slab
+# operations, 16 for the children's min/max reductions).
 OPS = dict(sphere=20, fused_sphere=18, listed_sphere=9, cull=17, shade=300,
            shade_miss=17, tri=46, tri_det=14, tri_u=23, tri_vt=44,
            tile_tri=44, gather=22, gather_far=8, gather_near=13, node=185,
-           sphere_node=17)
+           sphere_node=17, node4=88)
 # blocks the plain raster gather is held on
 RASTER_LONGEST = RASTER_SPACED = 16
 # device ms of the one-CTA-per-list kernels that the split-list kernels
@@ -541,18 +564,23 @@ def tri_skips(torch, tk, table, org, d, alive) -> dict:
 
 
 def no_path_kernels() -> dict:
-    """The wrappers of the kernels that no renderer calls (the clustered
-    sphere kernel, the raster gather), by name. Each main-path render sets
-    their counts to 0 just before it, with its own, and reads them just
-    after (read_no_path)."""
+    """The wrappers of the kernels that no render of phases 4-14 calls, by
+    name: the clustered sphere kernel and the raster gather, which no
+    renderer calls, and the BVH4 walk, which only a mesh on the BVH4 table
+    takes (phase 15). Each main-path render of phases 4-14 sets their
+    counts to 0 just before it, with its own, and reads them just after
+    (read_no_path)."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bwk
     from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
     from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
     return {"intersect_clustered": sk.intersect_clustered,
-            "gather_flux": gk.gather_flux}
+            "gather_flux": gk.gather_flux, "bvh4_walk": bwk.bvh4_walk}
 
 
 # {render path: {no-path kernel: launches in that render}}
 NO_PATH_LAUNCHES = {}
+# phases 11 and 13's walls (the BVH8 walk), beside phase 15's (the BVH4)
+MESH_WALLS = {}
 
 
 def read_no_path(path: str, launches: dict) -> None:
@@ -1582,20 +1610,24 @@ def recorded_walks(mesh, run):
     return walk_in
 
 
-def walk_work(torch, bw, args):
-    """The plain BVH8 walk on args with its step counts: (its outputs, the
-    phase fields: active lanes, steps per active lane (mean, max), node and
-    pair steps, table rows read and bound_ms; the bound). The bound's bytes
-    are the table rows read, the rays (29 B) and results (17 B); its
-    operations each node row's and each pair row's tests (OPS)."""
-    *want, steps, visited = bw.bvh8_walk_plain(*args, count_steps=True)
+def walk_work(torch, bw, args, walk="bvh8"):
+    """The plain BVH8 (or BVH4) walk on args with its step counts: (its
+    outputs, the phase fields: active lanes, steps per active lane (mean,
+    max), node and pair steps, table rows read and bound_ms; the bound).
+    The bound's bytes are the table rows read, the rays (29 B) and results
+    (17 B); its operations each node row's and each pair row's tests
+    (OPS)."""
+    plain, node_ops, lanes = (
+        (bw.bvh8_walk_plain, OPS["node"], bw.LANES_PER_RAY) if walk == "bvh8"
+        else (bw.bvh4_walk_plain, OPS["node4"], bw.BVH4_LANES_PER_RAY))
+    *want, steps, visited = plain(*args, count_steps=True)
     active = args[4]
     lane_steps = steps.sum(dim=1)[active].float()
     w_bound = bound(int(visited.sum()) * 128 + active.numel() * (29 + 17),
-                    int(steps[:, 0].sum()) * OPS["node"]
+                    int(steps[:, 0].sum()) * node_ops
                     + int(steps[:, 1].sum()) * 2 * OPS["tri"])
     fields = dict(
-        active=int(active.sum()), lanes_per_ray=bw.LANES_PER_RAY,
+        active=int(active.sum()), lanes_per_ray=lanes,
         steps_mean=f"{float(lane_steps.mean()):.2f}",
         steps_max=int(lane_steps.max()),
         node_steps=int(steps[:, 0].sum()),
@@ -1788,6 +1820,9 @@ def ganesha_phases(torch, np, smi, rend):
     b_share = float(np.sqrt(np.mean((binned[0] - binned[1]) ** 2))) / b_rms
     ref_len = [int(n) for n in ref["photon_map_lengths"]]
     len_err = max(abs(a - b) / b for a, b in zip(lengths, ref_len))
+    MESH_WALLS["ganesha"] = dict(
+        first_iter_s=iter_s[0], median_s_per_iter=statistics.median(
+            iter_s[1:]))
     phase("ganesha_render",
           config=f"{size}x{size},iters={iters},photons={photons},"
                  f"b={bounces}",
@@ -2029,6 +2064,7 @@ def ganesha_pt_phases(torch, np, smi, ppm_rend):
                      "bvh8_walk": spp * (bounces - 1),
                      "intersect_tile_tris": spp}
     wall_s = statistics.median(walls)
+    MESH_WALLS["ganesha_pt"] = dict(first_render_s=first_s, wall_s=wall_s)
     os.makedirs(OUT, exist_ok=True)
     png = os.path.join(OUT, f"ganesha_pt_{size}x{size}_spp{spp}.png")
     write_png(png, img)
@@ -2401,6 +2437,367 @@ def multi_device_phases(torch, np, dev, smi, shirley_ref, pt_ref,
     return launches, rank_launches
 
 
+def subdivide(np, verts, faces):
+    """4:1 midpoint subdivision: one new vertex per undirected edge, so a
+    closed surface stays closed. Returns (vertices, 4 F faces)."""
+    e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]])
+    n = len(verts)
+    key = np.minimum(e[:, 0], e[:, 1]) * n + np.maximum(e[:, 0], e[:, 1])
+    uniq, inv = np.unique(key, return_inverse=True)
+    mids = 0.5 * (verts[uniq // n] + verts[uniq % n])
+    m01, m12, m20 = (n + inv).reshape(3, -1)
+    a, b, c = faces.T
+    out = [np.stack(t, axis=1) for t in ((a, m01, m20), (m01, b, m12),
+                                         (m20, m12, c), (m01, m12, m20))]
+    return np.concatenate([verts, mids]), np.concatenate(out)
+
+
+def image_shares(np, img, ref_img, size):
+    """(RMSE as a share of the reference's RMS, the RMSE of 8x8-pixel means
+    as a share of the means' RMS, max |difference|) of an image against its
+    reference."""
+    rmse = float(np.sqrt(np.mean((img - ref_img) ** 2)))
+    binned = [x.reshape(size // 8, 8, size // 8, 8, 3).mean(axis=(1, 3))
+              for x in (img, ref_img)]
+    b_share = (float(np.sqrt(np.mean((binned[0] - binned[1]) ** 2)))
+               / float(np.sqrt(np.mean(binned[1] ** 2))))
+    return (rmse / float(np.sqrt(np.mean(ref_img ** 2))), b_share,
+            float(np.abs(img - ref_img).max()))
+
+
+def pt_render_gates(torch, np, dev, render, scene, name, renders):
+    """The path-traced ganesha gates of phase 13 on one make_render_fn:
+    a first render (set-up included), then `renders` warm ones, the first
+    of them counted. Returns the phase fields and the counted launches."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render(scene)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (img_t, segments), launches, wall = counted(torch, dev,
+                                                lambda: render(scene))
+    walls = [wall]
+    for _ in range(renders - 1):
+        walls.append(counted(torch, dev, lambda: render(scene))[2])
+    ref = np.load(GANESHA_PT_REF)
+    ref_img = ref["img"].astype(np.float64)
+    img = img_t.cpu().numpy().astype(np.float64)
+    require(img.shape == ref_img.shape and bool(np.isfinite(img).all()),
+            f"{name}: image {img.shape}, finite {np.isfinite(img).all()}")
+    ref_segs = int(ref["segments"])
+    share, b_share, max_diff = image_shares(np, img, ref_img, PT_SIZE)
+    seg_err = abs(segments - ref_segs) / ref_segs
+    require(seg_err <= PT_SEGMENT_SLACK,
+            f"{name}: segments {segments} vs the reference's {ref_segs}")
+    require(share <= GANESHA_PT_RMSE_SHARE,
+            f"{name}: RMSE share {share} > {GANESHA_PT_RMSE_SHARE}")
+    require(b_share <= GANESHA_PT_BINNED_SHARE,
+            f"{name}: 8x8-binned RMSE share {b_share} > "
+            f"{GANESHA_PT_BINNED_SHARE}")
+    return dict(segments=segments, reference_segments=ref_segs,
+                segments_rel_err=f"{seg_err:.3e}",
+                rmse_share_of_rms=f"{share:.4e}",
+                binned8_rmse_share=f"{b_share:.4e}",
+                max_abs_diff=f"{max_diff:.6e}",
+                first_render_s=f"{first_s:.4f}",
+                wall_s=f"{statistics.median(walls):.4f}",
+                walls_s=json.dumps([round(w, 4) for w in walls])), launches
+
+
+def bvh4_phases(torch, np, dev, smi, rend):
+    """Phase 15: the BVH4 walk. (a) phase 9's triangles on the BVH4 table:
+    bvh4_walk against its plain version and beside bvh8_walk on four ray
+    sets, and the ganesha PPM and path-traced renders through it; (b)
+    big_ganesha subdivided 4:1 (1,797,408 triangles), past the BVH8
+    table's range, through build_pt and the ganesha CLI. rend: phase 9's
+    PPMRenderer (its mesh on the BVH8 table). Returns (the JSON entry of
+    bvh4_walk without launches, {render path: launches})."""
+    import functools
+    from unittest import mock
+
+    from pathtracer_tpu_torch import native, ppm
+    from pathtracer_tpu_torch.integrator import MeshRenderer, make_render_fn
+    from pathtracer_tpu_torch.io import ply
+    from pathtracer_tpu_torch.models import ganesha, shirley
+    from pathtracer_tpu_torch.ops.bvh import MeshBVH, build_walk_table4
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+
+    t_phase = time.perf_counter()
+    mesh8 = rend.mesh
+    bg = shirley.BACKGROUND
+    path_launches = {}
+
+    def off_path(name, launches, want=None):
+        """Phase 15's renders take the BVH4 walk: it ran, the BVH8 walk and
+        the kernels of no path did not (and, with `want`, every count)."""
+        path_launches[name] = launches
+        require(launches["bvh4_walk"] > 0 and launches["bvh8_walk"] == 0
+                and launches["intersect_clustered"] == 0
+                and launches["gather_flux"] == 0,
+                f"{name}: launches {launches}")
+        require(want is None or launches == want,
+                f"{name}: launches {launches}, want {want}")
+
+    # --- 15a. phase 9's triangles on the BVH4 table ------------------------
+    t0 = time.perf_counter()
+    with mock.patch.object(ganesha, "MeshBVH",
+                           functools.partial(MeshBVH, walk="bvh4")):
+        scene, cam, lights, mesh = ganesha.build(GANESHA_PLY, 1.0, dev)
+    build_s = time.perf_counter() - t0
+    phase("bvh4_mesh", triangles=mesh.n_tris, walk=mesh.walk,
+          walk_table_rows=mesh.table_np.shape[0], node_end=mesh.node_end,
+          stride=mesh.stride, table_mb=f"{mesh.table_np.nbytes / 1e6:.1f}",
+          bvh8_table_rows=mesh8.table_np.shape[0],
+          mesh_build_s=f"{build_s:.3f}")
+    require(mesh.walk == "bvh4" and np.array_equal(mesh.tri_a, mesh8.tri_a),
+            "the BVH4 mesh holds other triangles than phase 9's")
+
+    # the walk's inputs: the ganesha photon pass's bounces 0 and 1, and the
+    # path-traced pass 0's bounces 1 and 3
+    trace, _, _ = ppm.make_photon_pass(scene, lights, PPM_PHOTONS,
+                                       PPM_BOUNCES, mesh)
+    photon_in = recorded_walks(mesh, lambda: trace(0))
+    r = MeshRenderer(scene, cam, bg, PT_SIZE, PT_SIZE, PT_SPP, PT_BOUNCES,
+                     dev, mesh)
+    pt_in = recorded_walks(mesh, lambda: r.trace_pass(0))
+    sets = {"photon_b0": photon_in[0], "photon_b1": photon_in[1],
+            "pt_b1": pt_in[0], "pt_b3": pt_in[2]}
+    walk = {}
+    for name, rays in sets.items():
+        args = (mesh.table, *rays, mesh.node_end, mesh.stride)
+        args8 = (mesh8.table, *rays, mesh8.node_end, mesh8.stride)
+        n = rays[0].shape[0]
+        t0 = time.perf_counter()
+        want, fields, w_bound = walk_work(torch, bw, args, walk="bvh4")
+        plain_s = time.perf_counter() - t0
+        got8 = bw.bvh8_walk(*args8)
+        ms8 = time_ms(torch, lambda: bw.bvh8_walk(*args8))
+        _, per8, _, _ = device_times(torch, lambda: bw.bvh8_walk(*args8),
+                                     reps=5)
+        got = bw.bvh4_walk(*args)
+        torch.cuda.synchronize()
+        fields.update(
+            bvh8_ms=f"{ms8:.4f}",
+            bvh8_device_ms=device_ms_field(per8, "bvh8_walk_kernel"),
+            lanes_differ_from_bvh8=json.dumps(dict(
+                hit=int((got[4] != got8[4]).sum()),
+                t=int((got[0] != got8[0]).sum()),
+                idx=int(((got[3] != got8[3]) & (got[4] | got8[4])).sum()))),
+            hits=int(got[4].sum()), plain_count_steps_s=f"{plain_s:.3f}",
+            bound_by=w_bound["bound_by"])
+        if name == "photon_b0":  # the JSON line's ms and plain_ms
+            err, kms, plain_ms, _ = compare(
+                torch, "bvh4_walk", lambda: bw.bvh4_walk(*args),
+                lambda: bw.bvh4_walk_plain(*args), f"{name}:{n}_lanes",
+                kernel="bvh4_walk_kernel", plain_reps=2, plain_batch=1,
+                plain_prof=1, **fields)
+            dev_ms = KERNEL_DEVICE_MS["bvh4_walk"]
+        else:
+            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            kms = time_ms(torch, lambda: bw.bvh4_walk(*args))
+            _, per, _, _ = device_times(torch, lambda: bw.bvh4_walk(*args),
+                                        reps=5)
+            dev_ms = (kernel_ms(per, "bvh4_walk_kernel") if any(
+                "bvh4_walk_kernel" in k for k in per) else None)
+            phase("bvh4_walk", shape=f"{name}:{n}_lanes", equal=exact,
+                  ms=f"{kms:.4f}",
+                  device_ms=device_ms_field(per, "bvh4_walk_kernel"),
+                  **fields)
+            require(exact, f"bvh4_walk ({name}): the kernel differs from "
+                    "its plain version")
+        walk[name] = dict(ms=kms, device_ms=dev_ms,
+                          bound_ms=w_bound["bound_ms"],
+                          bound_by=w_bound["bound_by"], bvh8_ms=ms8,
+                          steps_mean=float(fields["steps_mean"]),
+                          steps_max=fields["steps_max"])
+
+    # the ganesha PPM render on the BVH4 table, phase 11's gates
+    rend4 = ppm.PPMRenderer(scene, cam, lights, PPM_SIZE, PPM_SIZE,
+                            iterations=PPM_ITERS, photon_count=PPM_PHOTONS,
+                            max_bounces=PPM_BOUNCES, verbose=False,
+                            mesh=mesh)
+    marks = []
+
+    def tick(i, img_sum):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    img_sum, launches, _ = counted(
+        torch, dev, lambda: rend4.render(checkpoint_cb=tick))
+    off_path("ganesha_bvh4", launches)
+    require(all(launches[k] > 0 for k in (
+        "intersect_spheres", "intersect_tris", "gather_flux_chunks",
+        "intersect_tile_tris")), f"ganesha on BVH4: launches {launches}")
+    iter_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    lengths = [int(n) for n in rend4.photon_map_lengths]
+    ref = np.load(GANESHA_REF)
+    ref_len = [int(n) for n in ref["photon_map_lengths"]]
+    len_err = max(abs(a - b) / b for a, b in zip(lengths, ref_len))
+    img = img_sum.cpu().numpy() / PPM_ITERS
+    ref_img = ref["img"].astype(np.float64)
+    require(img.shape == ref_img.shape and bool(np.isfinite(img).all()),
+            f"ganesha on BVH4: image {img.shape}")
+    share, b_share, max_diff = image_shares(np, img, ref_img, PPM_SIZE)
+    phase("bvh4_ganesha_render",
+          config=f"{PPM_SIZE}x{PPM_SIZE},iters={PPM_ITERS},"
+                 f"photons={PPM_PHOTONS},b={PPM_BOUNCES}",
+          first_iter_s=f"{iter_s[0]:.4f}",
+          median_s_per_iter=f"{statistics.median(iter_s[1:]):.4f}",
+          bvh8_phase11=json.dumps({k: round(v, 4) for k, v in
+                                   MESH_WALLS["ganesha"].items()}),
+          photon_map_lengths=json.dumps(lengths),
+          max_length_rel_err=f"{len_err:.3e}",
+          rmse_share_of_rms=f"{share:.4e}",
+          binned8_rmse_share=f"{b_share:.4e}", max_abs_diff=f"{max_diff:.6e}",
+          launches=json.dumps(launches), gpu=json.dumps(smi))
+    require(len_err <= PPM_LENGTH_SLACK,
+            f"ganesha on BVH4: photon map lengths {lengths} vs {ref_len}")
+    require(share <= GANESHA_RMSE_SHARE,
+            f"ganesha on BVH4: RMSE share {share} > {GANESHA_RMSE_SHARE}")
+    require(b_share <= GANESHA_BINNED_SHARE,
+            f"ganesha on BVH4: 8x8-binned RMSE share {b_share} > "
+            f"{GANESHA_BINNED_SHARE}")
+
+    # the path-traced ganesha on the BVH4 table, phase 13's gates
+    want_pt = {k: 0 for k in launches}
+    want_pt.update(intersect_spheres=PT_SPP * PT_BOUNCES,
+                   intersect_tris=PT_SPP * PT_BOUNCES,
+                   bvh4_walk=PT_SPP * (PT_BOUNCES - 1),
+                   intersect_tile_tris=PT_SPP)
+    fields, launches = pt_render_gates(
+        torch, np, dev, make_render_fn(cam, bg, PT_SIZE, PT_SIZE, PT_SPP,
+                                       PT_BOUNCES, dev, mesh=mesh),
+        scene, "ganesha_pt on BVH4", PT_WARM_RENDERS)
+    off_path("ganesha_pt_bvh4", launches, want_pt)
+    phase("bvh4_ganesha_pt_render",
+          config=f"{PT_SIZE}x{PT_SIZE},spp={PT_SPP},b={PT_BOUNCES}",
+          bvh8_phase13=json.dumps({k: round(v, 4) for k, v in
+                                   MESH_WALLS["ganesha_pt"].items()}),
+          launches=json.dumps(launches), gpu=json.dumps(smi), **fields)
+
+    # --- 15b. a mesh past the BVH8 table's range ---------------------------
+    p = ply.load(GANESHA_PLY)
+    verts = np.stack([np.asarray(p.data["vertex"][k], np.float64)
+                      for k in "xyz"], axis=1)
+    verts, faces = subdivide(np, verts, np.asarray(
+        p.data["vertex_indices"]["vertex_indices"], np.int64))
+    verts = verts.astype(np.float32).astype(np.float64)  # as the file holds
+    os.makedirs(OUT, exist_ok=True)
+    sub_ply = os.path.join(OUT, "big_ganesha_sub4.ply")
+    ply.write_mesh(sub_ply, verts, faces)
+    t0 = time.perf_counter()
+    scene_b, cam_b, _, mesh_b = ganesha.build_pt(sub_ply, 1.0, dev)
+    build_pt_s = time.perf_counter() - t0
+    require(mesh_b.walk == "bvh4" and mesh_b.n_tris == len(faces),
+            f"build_pt of {len(faces)} triangles took {mesh_b.walk}")
+    # the build's steps timed alone on the same triangles, and the BVH8
+    # table's refusal (sized from the tree before any allocation)
+    vc = cam_b.transform_points(verts).astype(np.float32)
+    a, b, c = (vc[faces[:, k]] for k in range(3))
+    t0 = time.perf_counter()
+    nodes_lo, nodes_hi, meta, order, _, axes = native.bvh_build(
+        np.minimum(np.minimum(a, b), c), np.maximum(np.maximum(a, b), c))
+    bvh_s = time.perf_counter() - t0
+    a, b, c = a[order], b[order], c[order]
+    tables = (nodes_lo, nodes_hi, meta, axes, a, b - a, c - a)
+    t0 = time.perf_counter()
+    table4 = build_walk_table4(*tables)[0]
+    table_s = time.perf_counter() - t0
+    refused = None
+    try:
+        native.bvh8_table(*tables)
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and "24-bit" in refused,
+            f"the BVH8 table took {len(faces)} triangles")
+    require(table4.shape == mesh_b.table_np.shape,
+            f"the BVH4 table alone has {table4.shape[0]} rows, build_pt's "
+            f"{mesh_b.table_np.shape[0]}")
+    del table4
+    t0 = time.perf_counter()
+    ttk.build_tile_tri_table(cam_b, mesh_b.tri_a, mesh_b.tri_e1,
+                             mesh_b.tri_e2, PT_SIZE, PT_SIZE, bvh=mesh_b,
+                             backface_cull=mesh_b.watertight, flip_y=True)
+    tile_s = time.perf_counter() - t0
+    phase("bvh4_past_range_mesh", triangles=mesh_b.n_tris,
+          ply=os.path.relpath(sub_ply, ROOT), walk=mesh_b.walk,
+          bvh8_refused=json.dumps(refused), bvh8_row_limit=2 ** 24 // 8,
+          walk_table_rows=mesh_b.table_np.shape[0], node_end=mesh_b.node_end,
+          stride=mesh_b.stride,
+          table_mb=f"{mesh_b.table_np.nbytes / 1e6:.1f}",
+          build_pt_s=f"{build_pt_s:.3f}", bvh_build_s=f"{bvh_s:.3f}",
+          walk_table_s=f"{table_s:.3f}", tile_table_s=f"{tile_s:.3f}")
+    fields, launches = pt_render_gates(
+        torch, np, dev, make_render_fn(cam_b, bg, PT_SIZE, PT_SIZE, PT_SPP,
+                                       PT_BOUNCES, dev, mesh=mesh_b),
+        scene_b, "ganesha_pt past the BVH8 range", 1)
+    off_path("ganesha_pt_sub4", launches, want_pt)
+    phase("bvh4_past_range_pt_render",
+          config=f"{PT_SIZE}x{PT_SIZE},spp={PT_SPP},b={PT_BOUNCES}",
+          launches=json.dumps(launches), gpu=json.dumps(smi), **fields)
+    del scene_b, mesh_b
+
+    # the ganesha CLI on the file: a render (with its progress lines, which
+    # carry the photon map lengths) and -stop-after-bvh
+    png = os.path.join(OUT, f"ganesha_sub4_{PPM_SIZE}x{PPM_SIZE}.png")
+    if os.path.exists(png):
+        os.remove(png)
+    ply_arg = os.path.relpath(sub_ply, ROOT)
+    said = {}
+    for label, argv in (
+            ("render", ["-width", str(PPM_SIZE), "-height", str(PPM_SIZE),
+                        "-iterations", "2", "-photon-count",
+                        str(PPM_PHOTONS), "-max-bounces", str(PPM_BOUNCES),
+                        "-o", png]),
+            ("stop_after_bvh", ["-stop-after-bvh"])):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "pathtracer_tpu_torch",
+                              "ganesha", "-ganesha-ply", ply_arg, *argv],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        require(run.returncode == 0,
+                f"ganesha CLI ({label}) on {ply_arg} failed:\n{run.stdout}"
+                f"\n{run.stderr}")
+        said[label] = (time.perf_counter() - t0, run.stdout.splitlines())
+    os.remove(sub_ply)  # 34 MB: kept out of what the run brings back
+    cli_lengths = [int(ln.split("=")[1].split()[0])
+                   for ln in said["render"][1]
+                   if ln.strip().startswith("photon map length =")]
+    png_wh = png_size(png)
+    stats = said["stop_after_bvh"][1]
+    phase("bvh4_past_range_cli", seconds=f"{said['render'][0]:.3f}",
+          png=os.path.relpath(png, ROOT), size=f"{png_wh[0]}x{png_wh[1]}",
+          photon_map_lengths=json.dumps(cli_lengths),
+          reference_lengths=json.dumps(ref_len[:2]),
+          said=json.dumps(said["render"][1][-1]),
+          stop_after_bvh_s=f"{said['stop_after_bvh'][0]:.3f}",
+          stats=json.dumps([ln for ln in stats if ln.startswith(
+              ("#triangles", "tree depth", "build time", "bvh bytes"))]))
+    require(png_wh == (PPM_SIZE, PPM_SIZE), f"PNG is {png_wh}")
+    require(len(cli_lengths) == 2, f"the CLI printed lengths {cli_lengths}")
+    require(f"#triangles = {len(faces)}" in stats
+            and stats[-1] == "Stop after bvh build",
+            f"-stop-after-bvh said {stats}")
+    phase("bvh4", seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+    b0 = walk["photon_b0"]
+    kernel = entry(
+        "bvh4_walk", "bvh4_walk.cu", "bvh.py:1038", err, b0["ms"], plain_ms,
+        **{k: b0[k] for k in ("bound_ms", "bound_by")},
+        shape="ganesha photon bounce-0 rays on the BVH4 table, 75776 lanes",
+        lanes_per_ray=bw.BVH4_LANES_PER_RAY, device_ms=b0["device_ms"],
+        bvh8_walk_ms=b0["bvh8_ms"],
+        **{f"{key}_{name}": w[key] for name, w in walk.items()
+           if name != "photon_b0"
+           for key in ("ms", "device_ms", "bound_ms", "bound_by",
+                       "bvh8_ms")},
+        steps_mean={name: w["steps_mean"] for name, w in walk.items()},
+        steps_max={name: w["steps_max"] for name, w in walk.items()})
+    return kernel, path_launches
+
+
 def entry(name, source, replaces, err, kms, pms, **kw):
     """One kernel of the JSON line; no single PyTorch call computes any of
     the port's kernels, so library_ms is null throughout."""
@@ -2720,6 +3117,8 @@ def main() -> None:
     md_launches, md_rank_launches = multi_device_phases(
         torch, np, dev, smi, (img_t, segments), pt, cornell_lengths)
 
+    bvh4_kernel, bvh4_launches = bvh4_phases(torch, np, dev, smi, pt["rend"])
+
     # bounds of the PT kernels: bounce 1 (full) reads state (10 planes),
     # radiance (3), offsets and the hierarchy, writes state and radiance,
     # and runs the walk's node tests and pairs (cull_work; the brute
@@ -2758,15 +3157,17 @@ def main() -> None:
     # path's count, phase 14's too. The path-traced render's numbers join
     # the entries of its four kernels
     paths = {"shirley": launches, "cornell": ppm_launches,
-             "ganesha": mesh_launches, "ganesha_pt": pt_launches}
+             "ganesha": mesh_launches, "ganesha_pt": pt_launches,
+             **bvh4_launches}
     multi = {"multi_device": md_launches,
              "multi_device_ranks": md_rank_launches}
+    mesh_kernels.append(bvh4_kernel)
     for k in kernels + ppm_kernels + mesh_kernels:
         by_path = {p: counts[k["name"]] for p, counts in paths.items()
                    if k["name"] in counts}
         k.update(launches=sum(by_path.values()), launches_by_path={
             **by_path, **{p: counts[k["name"]] for p, counts in
-                          multi.items()}})
+                          multi.items() if k["name"] in counts}})
     by_name = {k["name"]: k for k in ppm_kernels + mesh_kernels}
     for name, key in (("intersect_spheres", "spheres_b1"),
                       ("intersect_tris", "tris_b1")):
@@ -2813,18 +3214,21 @@ def main() -> None:
         raster,
     ]
     # the kernels on no path: their counts as read around each of the six
-    # main-path runs in this process
+    # main-path runs of phases 4-14 in this process and around phase 15's;
+    # the BVH4 walk's as read around those six runs, beside phase 15's
     require(len(NO_PATH_LAUNCHES) == 6,
             f"no-path counts read around {sorted(NO_PATH_LAUNCHES)}")
     for k in kernels[-2:]:
-        by_path = {p: counts[k["name"]]
-                   for p, counts in NO_PATH_LAUNCHES.items()}
+        by_path = {p: counts[k["name"]] for p, counts in
+                   {**NO_PATH_LAUNCHES, **bvh4_launches}.items()}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path)
+    bvh4_kernel["launches_by_path"].update(
+        {p: counts["bvh4_walk"] for p, counts in NO_PATH_LAUNCHES.items()})
     phase("no_path_launches", counts=json.dumps(NO_PATH_LAUNCHES))
     require(all(n == 0 for counts in NO_PATH_LAUNCHES.values()
                 for n in counts.values()),
             f"a render launched a kernel of no path: {NO_PATH_LAUNCHES}")
-    require(len(kernels) == 11, f"{len(kernels)} kernels in the JSON line")
+    require(len(kernels) == 12, f"{len(kernels)} kernels in the JSON line")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

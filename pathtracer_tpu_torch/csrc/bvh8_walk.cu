@@ -19,7 +19,7 @@
 // re-entry pointer (this row at phase sel+1, or the row's exit when no
 // later child hits). A triangle-pair row: lanes 0 and 1 run the two
 // Moller-Trumbore tests against the old best at once, __shfl_sync hands
-// both results to the group, and each lane combines them (below). Lanes
+// both results to the group, and each lane combines them. Lanes
 // need no lockstep across groups: a ray's result does not depend on the
 // others, so the JAX walk's coherence sort, chunking and step caps are
 // dropped. G lanes per ray keep G times the warps in flight of the
@@ -27,23 +27,14 @@
 // ~18 warps of an SM's 64), which hides the chain of dependent row loads,
 // and a row costs one 128-byte transaction instead of ~30 scalar loads.
 //
-// The triangle pair. The sequential walk tests the first triangle against
-// the best t0, then the second against the result. Let ok_j be test j
-// accepting against t0 (the t <= best rule). If ok1, the best is tt1 <=
-// t0, and the second then accepts iff its other conditions hold and tt2 <=
-// tt1, which implies tt2 <= t0: iff ok2 && tt2 <= tt1. If !ok1 the best is
-// still t0, and the second accepts iff ok2. So the second wins iff ok2 &&
-// (!ok1 || tt2 <= tt1), a tie tt2 == tt1 included; else the first wins
-// iff ok1. An accepted tt is >= 0, never NaN.
-//
-// Numerics, kept equal to the plain version (and to the JAX walk):
-// - min and max propagate NaN (jnp.minimum / maximum, torch.minimum /
-//   maximum): 1/d of an axis-aligned ray is +-inf and (q - po) * idp can be
-//   0 * inf = NaN, which must make the child miss. fminf / fmaxf would
-//   drop the NaN, so the kernel uses nan_min / nan_max below.
-// - the 24-bit entry unpack uses logical shifts on uint32;
-// - the triangle test accepts t <= best (the tile kernel's is strict);
-// - sel is the first hitting child, 0 when none.
+// The triangle pair (csrc/bvh_walk.cuh, shared with bvh4_walk.cu): lanes
+// 0 and 1 test the two triangles against the old best at once and the
+// group combines them; the header proves the combine equals the
+// sequential update. Numerics, kept equal to the plain version (and to
+// the JAX walk): min and max propagate NaN (the header's nan_min /
+// nan_max: 0 * inf of an axis-aligned ray on a box plane must miss); the
+// 24-bit entry unpack uses logical shifts on uint32; the triangle test
+// accepts t <= best; sel is the first hitting child, 0 when none.
 // Built with -fmad=false and IEEE division.
 //
 // Bound on this card: the steps are dependent row loads (latency), one
@@ -54,46 +45,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bvh_walk.cuh"
+
 namespace {
+
+using pt_walk::BIG;
+using pt_walk::nan_max;
+using pt_walk::nan_min;
 
 constexpr int BLOCK = 64;  // a few rays per CTA: a CTA lasts as long as
                            // its longest ray, so small CTAs free slots early
 constexpr int G = 8;  // lanes per ray, one child of a node row each
-constexpr float BIG = 0x1.c363ccp+127f;  // np.float32(3.0e38)
-constexpr float EPS = 0x1.0c6f7ap-20f;  // np.float32(1e-6)
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
-}
-
-// One Moller-Trumbore test against the triangle at row columns
-// [c, c + 9) against the best tb: whether it accepts, and its t, u, v.
-__device__ __forceinline__ bool mt_test(const float* r, int c,
-                                        const float o[3], const float d[3],
-                                        float tb, float& tt, float& uu,
-                                        float& vv) {
-  const float ax = r[c], ay = r[c + 1], az = r[c + 2];
-  const float e1x = r[c + 3], e1y = r[c + 4], e1z = r[c + 5];
-  const float e2x = r[c + 6], e2y = r[c + 7], e2z = r[c + 8];
-  const float pvx = d[1] * e2z - d[2] * e2y;  // pvec = d x e2
-  const float pvy = d[2] * e2x - d[0] * e2z;
-  const float pvz = d[0] * e2y - d[1] * e2x;
-  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const float det_inv = 1.0f / det;
-  const float tvx = o[0] - ax, tvy = o[1] - ay, tvz = o[2] - az;
-  uu = det_inv * (tvx * pvx + tvy * pvy + tvz * pvz);
-  const float qvx = tvy * e1z - tvz * e1y;  // qvec = tvec x e1
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  vv = det_inv * (d[0] * qvx + d[1] * qvy + d[2] * qvz);
-  tt = det_inv * (e2x * qvx + e2y * qvy + e2z * qvz);
-  return (fabsf(det) >= EPS) && (uu >= 0.0f) && (uu <= 1.0f) &&
-         (vv >= 0.0f) && (uu + vv <= 1.0f) && (tt >= 0.0f) && (tt <= tb);
-}
 
 __global__ void __launch_bounds__(BLOCK)
     bvh8_walk_kernel(const float4* __restrict__ table, int node_end8,
@@ -173,31 +135,7 @@ __global__ void __launch_bounds__(BLOCK)
       }
       ptr = nxt;
     } else {
-      // lane 0 tests the first triangle, lane 1 the second, both against
-      // the old best; the group takes both results and combines them
-      float tt = 0.0f, uu = 0.0f, vv = 0.0f;
-      bool ok = false;
-      if (g < 2) ok = mt_test(r, 12 * g, o, d, tb, tt, uu, vv);
-      const int c1 = shift, c2 = shift + 1;
-      const bool ok1 = __shfl_sync(gmask, (int)ok, c1) != 0;
-      const bool ok2 = __shfl_sync(gmask, (int)ok, c2) != 0;
-      const float tt1 = __shfl_sync(gmask, tt, c1);
-      const float tt2 = __shfl_sync(gmask, tt, c2);
-      const float uu1 = __shfl_sync(gmask, uu, c1);
-      const float uu2 = __shfl_sync(gmask, uu, c2);
-      const float vv1 = __shfl_sync(gmask, vv, c1);
-      const float vv2 = __shfl_sync(gmask, vv, c2);
-      if (ok2 && (!ok1 || tt2 <= tt1)) {
-        tb = tt2;
-        ub = uu2;
-        vb = vv2;
-        ib = ri[21];
-      } else if (ok1) {
-        tb = tt1;
-        ub = uu1;
-        vb = vv1;
-        ib = ri[9];
-      }
+      pt_walk::tri_pair(r, ri, g, gmask, shift, o, d, tb, ub, vb, ib);
       ptr = r[10] > 0.5f ? lret : ptr + 8;
     }
     __syncwarp(gmask);  // every lane has read the row before the next one

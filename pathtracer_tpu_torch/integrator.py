@@ -84,14 +84,14 @@ def make_intersector(scene: Scene, mesh=None, mesh_intersect=None):
     org, d (N, 3) f32 with N a multiple of 1024; alive (N,) bool drives the
     kernels' block early exit.
 
-    The mesh walk (MeshBVH.intersect, the BVH8 walk kernel) is capped at the
-    pools' winner t, as the reference's floor-then-mesh intersect passes
-    the floor hit as the mesh query's t_max. mesh_intersect(org, d, alive)
-    -> (t, u, v, idx, hit) replaces the walk (the eye pass's tile-culled
-    kernel). A mesh winner's attributes come from one gather of the
-    mesh's (9, T) [a | e1 | e2] pack, its point is the barycentric
-    a + u e1 + v e2, its tex coords are (v, u + v) and its material the
-    mesh's row.
+    The mesh walk (MeshBVH.intersect, the BVH8 or BVH4 walk kernel) is
+    capped at the pools' winner t, as the reference's floor-then-mesh
+    intersect passes the floor hit as the mesh query's t_max.
+    mesh_intersect(org, d, alive) -> (t, u, v, idx, hit) replaces the walk
+    (the eye pass's tile-culled kernel). A mesh winner's attributes come
+    from one gather of the mesh's (9, T) [a | e1 | e2] pack, its point is
+    the barycentric a + u e1 + v e2, its tex coords are (v, u + v) and its
+    material the mesh's row.
 
     Returns dict(hit, t, point, normal, hit_front, albedo, mat_kind, ior,
     ior_inv). The uv of a sphere hit uses torch.acos / torch.atan2, the

@@ -3,9 +3,10 @@ by two spot lights, rendered by progressive photon mapping (build), or the
 same mesh and floor under the shirley sky, path traced (build_pt).
 
 Port of pathtracer_tpu/models/ganesha.py (make_camera, load_mesh, build,
-build_pt). The mesh rides the BVH8 walk (ops.bvh.MeshBVH); the 2-triangle
-floor sits in the scene's triangle pool, the reference's floor-then-mesh
-intersect expressed as nearest-of-pools.
+build_pt). The mesh rides the BVH8 walk (ops.bvh.MeshBVH), or the BVH4
+walk past the BVH8 table's 24-bit entries (about 1.5M triangles); the
+2-triangle floor sits in the scene's triangle pool, the reference's
+floor-then-mesh intersect expressed as nearest-of-pools.
 """
 
 from __future__ import annotations

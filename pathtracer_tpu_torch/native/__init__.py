@@ -1,15 +1,16 @@
 """The host-side build tier: native/bvh_build.cc, built with g++ and loaded
 with ctypes.
 
-Port of pathtracer_tpu/native/__init__.py for the three functions the port
-runs: the binned-SAH BVH build (bvh_build2), the BVH8 walk table
-(bvh8_table_rows / bvh8_table_fill) and the BVH-guided per-tile frustum cull
-(tile_cull_bvh). The library is built at first use with
-`g++ -O3 -march=native -shared -fPIC -pthread` into the package's git-ignored
-`_build/` directory, under a name hashed from the source and the flags, as
-`_build.py` builds the CUDA kernels. A missing or failing g++ raises: unlike
-the JAX package, the port has no pure-numpy fallback (about 100x slower on
-the ganesha mesh, and it would hide the failure).
+Port of pathtracer_tpu/native/__init__.py for the four functions the port
+runs: the binned-SAH BVH build (bvh_build2), the BVH8 and BVH4 walk tables
+(bvh8_table_rows / bvh8_table_fill, bvh4_table_rows / bvh4_table_fill) and
+the BVH-guided per-tile frustum cull (tile_cull_bvh). The library is built
+at first use with `g++ -O3 -march=native -shared -fPIC -pthread` into the
+package's git-ignored `_build/` directory, under a name hashed from the
+source and the flags, as `_build.py` builds the CUDA kernels. A missing
+or failing g++ raises: unlike the JAX package, the port has no pure-numpy
+fallback (about 100x slower on the ganesha mesh, and it would hide the
+failure).
 """
 
 from __future__ import annotations
@@ -68,12 +69,14 @@ def load() -> ctypes.CDLL:
     lib.bvh_build2.argtypes = [f32p, f32p, c_int, c_int, c_int, c_float,
                                c_float, f32p, f32p, i32p, i32p, i32p, i32p]
     lib.bvh_build2.restype = c_int
-    lib.bvh8_table_rows.argtypes = [i32p, c_int, i32p]
-    lib.bvh8_table_rows.restype = ctypes.c_int64
-    lib.bvh8_table_fill.argtypes = [f32p, f32p, i32p, i32p, c_int, f32p,
-                                    f32p, f32p, c_int, f32p, ctypes.c_int64,
-                                    ctypes.c_int32]
-    lib.bvh8_table_fill.restype = None
+    for width in (4, 8):
+        rows_fn = getattr(lib, f"bvh{width}_table_rows")
+        rows_fn.argtypes = [i32p, c_int, i32p]
+        rows_fn.restype = ctypes.c_int64
+        fill_fn = getattr(lib, f"bvh{width}_table_fill")
+        fill_fn.argtypes = [f32p, f32p, i32p, i32p, c_int, f32p, f32p, f32p,
+                            c_int, f32p, ctypes.c_int64, ctypes.c_int32]
+        fill_fn.restype = None
     lib.tile_cull_bvh.argtypes = [f32p, f32p, i32p, c_int, f32p, f32p, f32p,
                                   c_int, f64p, c_int, c_int, ctypes.c_double,
                                   u8p]
@@ -106,21 +109,25 @@ def bvh_build(prim_lo, prim_hi, length_cutoff=LENGTH_CUTOFF,
             order.astype(np.int64), int(depth[0]), axes[:m].copy())
 
 
-def bvh8_table(nodes_lo, nodes_hi, meta, axes, tri_a, tri_e1, tri_e2):
-    """The BVH8 walk table without its reciprocal-scale columns (see
-    ops/bvh.build_walk_table8). Returns (table (R, 32) f32, node_end,
-    stride), both in rows. Raises past the 24-bit entry range."""
+def _wide_table(width, nodes_lo, nodes_hi, meta, axes, tri_a, tri_e1,
+                tri_e2):
+    """The BVH4 or BVH8 walk table (bvh{width}_table_rows / _fill; the JAX
+    _bvh_wide_table_native). Returns (table (R, 32) f32, node_end, stride),
+    both in rows; node_end is 8 * stride."""
     lib = load()
     meta = np.ascontiguousarray(meta, np.int32)
     axes = np.ascontiguousarray(axes, np.int32)
     m = meta.shape[0]
     stride = np.zeros(1, np.int32)
-    rows = lib.bvh8_table_rows(meta, m, stride)
-    if rows * 8 >= 1 << 24:
+    rows = getattr(lib, f"bvh{width}_table_rows")(meta, m, stride)
+    if width == 8 and rows * 8 >= 1 << 24:
         raise ValueError(f"mesh too large for 24-bit BVH8 entries ({rows} "
-                         "rows); the BVH4 fallback is not ported")
+                         "rows)")
+    if rows * width >= 1 << 31:  # the fill writes int32 pointers
+        raise ValueError(f"mesh too large for int32 BVH{width} pointers "
+                         f"({rows} rows)")
     table = np.empty((rows, 32), np.float32)
-    lib.bvh8_table_fill(
+    getattr(lib, f"bvh{width}_table_fill")(
         np.ascontiguousarray(nodes_lo, np.float32),
         np.ascontiguousarray(nodes_hi, np.float32), meta, axes, m,
         np.ascontiguousarray(tri_a, np.float32),
@@ -128,6 +135,24 @@ def bvh8_table(nodes_lo, nodes_hi, meta, axes, tri_a, tri_e1, tri_e2):
         np.ascontiguousarray(tri_e2, np.float32), len(tri_a), table, rows,
         int(stride[0]))
     return table, 8 * int(stride[0]), int(stride[0])
+
+
+def bvh8_table(nodes_lo, nodes_hi, meta, axes, tri_a, tri_e1, tri_e2):
+    """The BVH8 walk table without its reciprocal-scale columns (see
+    ops/bvh.build_walk_table8). Returns (table (R, 32) f32, node_end,
+    stride), both in rows. Raises ValueError past the 24-bit entry range
+    (2^24 / 8 = 2,097,152 rows), before any allocation."""
+    return _wide_table(8, nodes_lo, nodes_hi, meta, axes, tri_a, tri_e1,
+                       tri_e2)
+
+
+def bvh4_table(nodes_lo, nodes_hi, meta, axes, tri_a, tri_e1, tri_e2):
+    """The BVH4 walk table (see ops/bvh.build_walk_table4), equal bit for
+    bit to the JAX bvh4_table_native. Returns (table (R, 32) f32,
+    node_end, stride), both in rows. Its pointers are int32 row*4 + phase,
+    so it raises ValueError past 2^29 rows."""
+    return _wide_table(4, nodes_lo, nodes_hi, meta, axes, tri_a, tri_e1,
+                       tri_e2)
 
 
 def tile_cull(nodes_lo, nodes_hi, meta, lo, hi, margin, planes):

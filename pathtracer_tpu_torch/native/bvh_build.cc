@@ -1,12 +1,14 @@
-// Binned-SAH BVH builder, BVH8 walk-table fill and per-tile frustum cull:
-// the host-side build tier of the PyTorch/CUDA port.
+// Binned-SAH BVH builder, BVH8 and BVH4 walk-table fills and per-tile
+// frustum cull: the host-side build tier of the PyTorch/CUDA port.
 //
 // Copy of pathtracer_tpu/native/bvh_build.cc, trimmed to what the port
 // runs: bvh_build2 (the binned-SAH build with split axes),
 // bvh8_table_rows / bvh8_table_fill (the BVH8 re-entry walk table that
-// csrc/bvh8_walk.cu walks) and tile_cull_bvh (the per-tile culled lists of
-// csrc/intersect_tile_tris.cu). The BVH4 table, the octant flattenings and
-// the axis-less bvh_build are not ported. Construction semantics (the
+// csrc/bvh8_walk.cu walks), bvh4_table_rows / bvh4_table_fill (the BVH4
+// table that csrc/bvh4_walk.cu walks, for meshes past the BVH8 table's
+// 24-bit entries) and tile_cull_bvh (the per-tile culled lists of
+// csrc/intersect_tile_tris.cu). The octant flattenings and the axis-less
+// bvh_build are not ported. Construction semantics (the
 // reference's shape_tree.ml:82-195): binned SAH over 3 axes, cost = costT +
 // (Al*Nl + Ar*Nr)*costI/Atotal, leaf when count <= 4 or SAH-stop with count
 // <= length_cutoff, emitted in depth-first order with skip links. Output is
@@ -515,10 +517,10 @@ int bvh_build2(const float* prim_lo, const float* prim_hi, int n,
 
 namespace {
 
-// Post-order sizing over the collapsed 8-wide view of the binary tree —
-// ONE definition shared by the rows & fill passes so the sizing rule cannot
-// desynchronize between them (rows vs fill disagreement corrupts the table
-// layout). size[ci] = row count of ci's collapsed
+// Post-order sizing over a collapsed (4- or 8-wide) view of the binary
+// tree — ONE definition shared by the BVH4/BVH8 rows & fill passes so the
+// sizing rule cannot desynchronize between them (rows vs fill disagreement
+// corrupts the table layout). size[ci] = row count of ci's collapsed
 // subtree; optionally also the total tri-pair row count and each leaf's
 // first pair row (canonical leaf order — matches the python builders).
 typedef int (*CollapseFn)(const int32_t*, int, int*);
@@ -561,7 +563,7 @@ static void collapse_sizes(const int32_t* meta, int m, CollapseFn collapse,
   }
 }
 
-// tri-pair rows
+// tri-pair rows: identical layout in the BVH4 and BVH8 tables
 // (zero-filled: det==0 pad tris never hit; row[10] = last-pair flag)
 static void fill_tri_pair_rows(float* table, int64_t node_end, int64_t rows,
                                const int32_t* meta, int m, const float* tri_a,
@@ -592,6 +594,164 @@ static void fill_tri_pair_rows(float* table, int64_t node_end, int64_t rows,
 }
 
 }  // namespace
+// ---- BVH4 re-entry walk table (ops/bvh.py build_walk_table4: layout &
+// phase-encoded pointer semantics) ----
+//
+// Copy of the JAX package's collapse4, Oct4Filler, bvh4_table_rows and
+// bvh4_table_fill (pathtracer_tpu/native/bvh_build.cc), unchanged: the
+// table the csrc/bvh4_walk.cu kernel walks when a mesh is past the BVH8
+// table's 24-bit entries. Collapses the binary tree two levels at a time:
+// each inner node's row tests up to 4 grandchild/child-leaf boxes at once
+// (world-space f32, NaN past the arity); triangles pack two per 32-col
+// row (fill_tri_pair_rows, the layout the BVH8 table shares). Pointers
+// are row*4+phase; a child's subtree exit re-enters its parent at phase
+// i+1. The 8 octant regions are structurally identical (only child order
+// differs), so `stride` is computed once and the fills run on 8 threads.
+
+namespace {
+
+// elements of the collapsed node: binary child if leaf, else its children
+static inline int collapse4(const int32_t* meta, int ci, int els[4]) {
+  int l = ci + 1;
+  int r = meta[3 * l + 2];
+  int k = 0;
+  for (int y : {l, r}) {
+    if (meta[3 * y + 1] > 0) {
+      els[k++] = y;
+    } else {
+      int yl = y + 1;
+      els[k++] = yl;
+      els[k++] = meta[3 * yl + 2];
+    }
+  }
+  return k;
+}
+
+struct Oct4Filler {
+  const float* nlo;
+  const float* nhi;
+  const int32_t* meta;
+  const int32_t* axes;
+  const int64_t* size4;
+  const int64_t* pair_first;
+  int64_t node_end, done;
+  const float* tri_a;
+  const float* tri_e1;
+  const float* tri_e2;
+  float* table;  // (rows, 32)
+
+  void near_order(int ci, int o, int els[4], int* k_out) const {
+    int l = ci + 1;
+    int r = meta[3 * l + 2];
+    bool negp = (o >> (2 - axes[ci])) & 1;
+    int outer[2] = {negp ? r : l, negp ? l : r};
+    int k = 0;
+    for (int oi = 0; oi < 2; ++oi) {
+      int y = outer[oi];
+      if (meta[3 * y + 1] > 0) {
+        els[k++] = y;
+      } else {
+        int yl = y + 1;
+        int yr = meta[3 * yl + 2];
+        bool neg = (o >> (2 - axes[y])) & 1;
+        els[k++] = neg ? yr : yl;
+        els[k++] = neg ? yl : yr;
+      }
+    }
+    *k_out = k;
+  }
+
+  void fill(int o, int64_t stride) const {
+    const float kNaN = std::numeric_limits<float>::quiet_NaN();
+    int64_t base = (int64_t)o * stride;
+    int64_t done_ptr = 4 * done;
+    struct Item {
+      int32_t ci;
+      int64_t row, exit_ptr;  // exit_ptr is phase-encoded
+    };
+    std::vector<Item> stack;
+    stack.push_back({0, base, done_ptr});
+    while (!stack.empty()) {
+      Item it = stack.back();
+      stack.pop_back();
+      float* row = table + 32 * it.row;
+      int32_t* rowi = (int32_t*)row;
+      for (int c = 0; c < 32; ++c) row[c] = kNaN;
+      if (meta[3 * it.ci + 1] > 0) {  // leaf root: degenerate 1-child row
+        std::memcpy(row, nlo + 3 * it.ci, 12);
+        std::memcpy(row + 3, nhi + 3 * it.ci, 12);
+        rowi[24] = (int32_t)(4 * (node_end + pair_first[it.ci]));
+        rowi[25] = rowi[26] = rowi[27] = (int32_t)done_ptr;
+        rowi[28] = (int32_t)it.exit_ptr;
+        rowi[29] = 1;
+        continue;
+      }
+      int els[4], k;
+      near_order(it.ci, o, els, &k);
+      int64_t entry = it.row + 1;
+      rowi[24] = rowi[25] = rowi[26] = rowi[27] = (int32_t)done_ptr;
+      for (int i = 0; i < k; ++i) {
+        int e = els[i];
+        std::memcpy(row + 6 * i, nlo + 3 * e, 12);
+        std::memcpy(row + 6 * i + 3, nhi + 3 * e, 12);
+        int64_t ex = (i + 1 < k) ? 4 * it.row + i + 1 : it.exit_ptr;
+        if (meta[3 * e + 1] > 0) {  // leaf child: direct tri entry
+          rowi[24 + i] = (int32_t)(4 * (node_end + pair_first[e]));
+        } else {
+          rowi[24 + i] = (int32_t)(4 * entry);
+          stack.push_back({e, entry, ex});
+          entry += size4[e];
+        }
+      }
+      rowi[28] = (int32_t)it.exit_ptr;
+      rowi[29] = k;
+    }
+  }
+};
+
+}  // namespace
+
+// Phase 1: sizes. Returns total rows; stride_out[0] = per-octant row count.
+int64_t bvh4_table_rows(const int32_t* meta, int m, int32_t* stride_out) {
+  if (m == 0) {
+    stride_out[0] = 1;
+    return 8 + 1;
+  }
+  std::vector<int64_t> size4;
+  int64_t n_pairs = 0;
+  collapse_sizes(meta, m, collapse4, size4, &n_pairs, nullptr);
+  int64_t stride = std::max<int64_t>(size4[0], 1);
+  stride_out[0] = (int32_t)stride;
+  return 8 * stride + n_pairs + 1;
+}
+
+// Phase 2: fill the caller-allocated (rows, 32) table.
+void bvh4_table_fill(const float* nodes_lo, const float* nodes_hi,
+                     const int32_t* meta, const int32_t* axes, int m,
+                     const float* tri_a, const float* tri_e1,
+                     const float* tri_e2, int t_cnt, float* table,
+                     int64_t rows, int32_t stride) {
+  int64_t node_end = 8 * (int64_t)stride;
+  int64_t done = rows - 1;
+  if (m == 0) {
+    std::memset(table, 0, (size_t)rows * 128);
+    return;
+  }
+  // recompute size4 + pair_first (cheap vs the fill)
+  std::vector<int64_t> size4, pair_first;
+  collapse_sizes(meta, m, collapse4, size4, nullptr, &pair_first);
+
+  Oct4Filler f{nodes_lo, nodes_hi, meta,   axes,   size4.data(),
+               pair_first.data(), node_end, done,  tri_a,
+               tri_e1,  tri_e2,  table};
+  std::vector<std::thread> ts;
+  for (int o = 0; o < 8; ++o)
+    ts.emplace_back([&f, o, stride]() { f.fill(o, stride); });
+  for (auto& t : ts) t.join();
+
+  fill_tri_pair_rows(table, node_end, rows, meta, m, tri_a, tri_e1, tri_e2,
+                     pair_first);
+}
 
 // ---- BVH8 re-entry walk table (ops/bvh.py build_walk_table8: layout &
 // phase-encoded pointer semantics) ----

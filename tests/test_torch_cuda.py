@@ -26,18 +26,20 @@ The chunk gather and the tile-culled triangle kernel split long lists over
 CTAs; their tests check that the input splits (a list longer than
 gather_kernel.SEG, a tile of more than one chunk).
 
-The mesh kernels (the BVH8 walk, the tile-culled triangle kernel) must
-equal their plain versions exactly too, on a random triangle soup with
-rays of exact-zero direction components and on a uv-sphere with empty
-tiles, in the film maps of both the photon mapper and the path tracer
-(flip_y), and the walk on the incoherent bounce rays of a path-traced
-pass. The ganesha renders on the card, photon mapped and path traced, are
-held to the CPU renders by the cornell bounds.
+The mesh kernels (the BVH8 and BVH4 walks, the tile-culled triangle
+kernel) must equal their plain versions exactly too, on a random triangle
+soup with rays of exact-zero direction components and on a uv-sphere with
+empty tiles, in the film maps of both the photon mapper and the path
+tracer (flip_y), and the walks on photon bounces over test_ganesha.ply
+and (BVH8) on the incoherent bounce rays of a path-traced pass. The
+ganesha renders on the card, photon mapped and path traced (on either
+walk), are held to the CPU renders by the cornell bounds.
 
 The full-variant bounce kernels (fused and intersect_state) walk the
 per-scene sphere hierarchy per warp; their tests check that the walk
 skips leaves, and a copied sphere checks the lowest-index tie rule. The
-BVH8 walk runs LANES_PER_RAY > 1 lanes per ray.
+BVH8 walk runs LANES_PER_RAY > 1 lanes per ray, the BVH4 walk
+BVH4_LANES_PER_RAY > 1.
 
 The two-kernel bounce (intersect_state, shade_state), the clustered sphere
 kernel and the raster-grid gather must equal their plain versions exactly;
@@ -408,7 +410,7 @@ def test_ppm_wrappers_refuse_malformed_input(dev):
                               .view(16, 128), 0.1)
 
 
-def _soup(dev, n=150, seed=5):
+def _soup(dev, n=150, seed=5, walk="bvh8"):
     """A random triangle soup as a MeshBVH on the card."""
     from pathtracer_tpu_torch.ops.bvh import MeshBVH
 
@@ -417,7 +419,7 @@ def _soup(dev, n=150, seed=5):
     faces = rs.randint(0, n, (2 * n, 3))
     faces = faces[(faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
                   & (faces[:, 0] != faces[:, 2])]
-    return MeshBVH(verts, faces, np.zeros(12, np.float32), dev)
+    return MeshBVH(verts, faces, np.zeros(12, np.float32), dev, walk=walk)
 
 
 def _uv_sphere(radius=45.0, nu=12, nv=8):
@@ -436,13 +438,11 @@ def _uv_sphere(radius=45.0, nu=12, nv=8):
     return verts, np.array(faces)
 
 
-def test_bvh8_walk_kernel_matches_plain(dev):
+def _soup_rays(dev, m):
     """4,096 random rays (t_max0 3 or 1e30, a quarter inactive), and 1,024
     with exact-zero direction components, half of them on the root box's
-    low plane of a zeroed axis (0 * inf = NaN must miss)."""
-    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
-
-    m = _soup(dev)
+    low plane of a zeroed axis (0 * inf = NaN must miss): (org, d, t_max0,
+    active) on the card, and the first zero-component lane."""
     rs = np.random.RandomState(7)
     n, nz = 4096, 1024
     org = rs.uniform(-8, 8, (n + nz, 3)).astype(np.float32)
@@ -455,7 +455,17 @@ def test_bvh8_walk_kernel_matches_plain(dev):
         active[i] = True
         if i >= n + nz // 2:
             org[i, axes[0]] = m.bbox_lo[axes[0]]
-    args = [torch.from_numpy(x).to(dev) for x in (org, d, t_max, active)]
+    return [torch.from_numpy(x).to(dev) for x in (org, d, t_max, active)], n
+
+
+def test_bvh8_walk_kernel_matches_plain(dev):
+    """4,096 random rays (t_max0 3 or 1e30, a quarter inactive), and 1,024
+    with exact-zero direction components, half of them on the root box's
+    low plane of a zeroed axis (0 * inf = NaN must miss)."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    m = _soup(dev)
+    args, n = _soup_rays(dev, m)
     before = bw.bvh8_walk.launches
     got = bw.bvh8_walk(m.table, *args, m.node_end, m.stride)
     assert bw.bvh8_walk.launches == before + 1
@@ -463,7 +473,7 @@ def test_bvh8_walk_kernel_matches_plain(dev):
     for g, w in zip(got, want):
         assert torch.equal(g, w), (g.float() - w.float()).abs().max()
     hit = got[4]
-    assert 100 < int(hit.sum()) < n + nz - 100
+    assert 100 < int(hit.sum()) < hit.numel() - 100
     assert int(hit[n:].sum()) > 4 and not bool(hit[~args[3]].any())
     assert bw.LANES_PER_RAY > 1
 
@@ -495,6 +505,117 @@ def test_bvh8_walk_kernel_matches_plain_on_photon_bounces(dev):
         want = bw.bvh8_walk_plain(*args)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
         assert int(got[4].sum()) > 0
+
+
+def test_bvh4_walk_kernel_matches_plain(dev):
+    """The BVH4 walk on the soup's rays of the BVH8 test (_soup_rays: the
+    zero-component lanes included), the table's NaN pad boxes included."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    m = _soup(dev, walk="bvh4")
+    assert m.walk == "bvh4"
+    assert bool(m.table[:m.node_end, :24].isnan().any())  # pad boxes
+    args, n = _soup_rays(dev, m)
+    before = bw.bvh4_walk.launches
+    got = bw.bvh4_walk(m.table, *args, m.node_end, m.stride)
+    assert bw.bvh4_walk.launches == before + 1
+    want = bw.bvh4_walk_plain(m.table, *args, m.node_end, m.stride)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+    hit = got[4]
+    assert 100 < int(hit.sum()) < hit.numel() - 100
+    assert int(hit[n:].sum()) > 4 and not bool(hit[~args[3]].any())
+    assert bw.BVH4_LANES_PER_RAY > 1
+
+
+def _ganesha_bvh4(dev, monkeypatch, path):
+    """models.ganesha.build of `path` on `dev` with the mesh on the BVH4
+    walk, as a mesh past the BVH8 range takes it."""
+    from pathtracer_tpu_torch.models import ganesha
+    from pathtracer_tpu_torch.ops.bvh import MeshBVH
+
+    monkeypatch.setattr(ganesha, "MeshBVH", lambda *a, **k: MeshBVH(
+        *a, **dict(k, walk="bvh4")))
+    out = ganesha.build(path, 1.0, dev)
+    assert out[3].walk == "bvh4"
+    return out
+
+
+def test_bvh4_walk_kernel_matches_plain_on_photon_bounces(dev, monkeypatch):
+    """The BVH4 walk's inputs of every bounce of a 4,000-photon pass over
+    scenes/test_ganesha.ply on the BVH4 table, as the photon pass makes
+    them, and rays with exact-zero direction components from inside the
+    mesh's box."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    scene, _, lights, mesh = _ganesha_bvh4(
+        dev, monkeypatch, os.path.join(ROOT, "scenes", "test_ganesha.ply"))
+    trace, _, _ = ppm.make_photon_pass(scene, lights, 4000, 4, mesh)
+    walk_in = []
+    walk = mesh.intersect
+
+    def record(org, d, t_max0, active):
+        walk_in.append(tuple(x.clone() for x in (org, d, t_max0, active)))
+        return walk(org, d, t_max0, active)
+
+    mesh.intersect = record
+    before = (bw.bvh4_walk.launches, bw.bvh8_walk.launches)
+    trace(0)
+    del mesh.intersect
+    assert (bw.bvh4_walk.launches, bw.bvh8_walk.launches) == (
+        before[0] + 4, before[1])
+    # 1,024 rays from inside the mesh's box with exact-zero direction
+    # components, half of them on its low plane of a zeroed axis
+    rs = np.random.RandomState(11)
+    nz = 1024
+    org = (mesh.bbox_lo + rs.rand(nz, 3) * (mesh.bbox_hi - mesh.bbox_lo))
+    d = rs.randn(nz, 3)
+    for i in range(nz):
+        axes = [i % 3] if i % 2 else [i % 3, (i + 1) % 3]
+        d[i, axes] = 0.0
+        if i >= nz // 2:
+            org[i, axes[0]] = mesh.bbox_lo[axes[0]]
+    walk_in.append(tuple(torch.from_numpy(x).to(dev) for x in (
+        org.astype(np.float32), d.astype(np.float32),
+        np.full(nz, 1e30, np.float32), np.ones(nz, bool))))
+    for org, d, t_max0, active in walk_in:
+        args = (mesh.table, org, d, t_max0, active, mesh.node_end,
+                mesh.stride)
+        got = bw.bvh4_walk(*args)
+        want = bw.bvh4_walk_plain(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert int(got[4].sum()) > 0
+
+
+def test_bvh4_ganesha_pt_card_render_matches_cpu(dev, tmp_path, monkeypatch):
+    """test_ganesha_pt_card_render_matches_cpu with the mesh on the BVH4
+    walk: the card's render goes through bvh4_walk (14 launches, bvh8_walk
+    none) and is held to the CPU render by the same bounds."""
+    from pathtracer_tpu_torch.models import ganesha
+    from pathtracer_tpu_torch.ops.bvh import MeshBVH
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+
+    monkeypatch.setattr(ganesha, "MeshBVH", lambda *a, **k: MeshBVH(
+        *a, **dict(k, walk="bvh4")))
+    counters = (sk.intersect_spheres, tk.intersect_tris, bw.bvh4_walk,
+                ttk.intersect_tile_tris, bw.bvh8_walk)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        scene, cam, bg, mesh = _tiny_ganesha_pt(device, tmp_path)
+        assert mesh.walk == "bvh4"
+        for fn in counters:
+            fn.launches = 0
+        img, segs = make_render_fn(cam, bg, 64, 64, 2, 8, device,
+                                   mesh=mesh)(scene)
+        out[device.type] = (img.cpu().numpy(), segs,
+                            [fn.launches for fn in counters])
+    (img, segs, launches), (want, want_segs, cpu_launches) = (out["cuda"],
+                                                              out["cpu"])
+    assert launches == [16, 16, 14, 2, 0] and cpu_launches == [0] * 5
+    assert abs(segs - want_segs) <= 0.005 * want_segs
+    assert np.isfinite(img).all()
+    assert float(np.sqrt(np.mean((img - want) ** 2))) <= 1e-3
 
 
 def _tile_kernel_equals_plain(dev, flip_y):
@@ -765,6 +886,14 @@ def test_mesh_wrappers_refuse_malformed_input(dev):
     with pytest.raises(ValueError, match="aligned"):  # table off by 4 B
         bw.bvh8_walk(shifted.view_as(m.table).copy_(m.table), org, org,
                      torch.zeros(8, device=dev), on, m.node_end, m.stride)
+    m4 = _soup(dev, walk="bvh4")
+    with pytest.raises(ValueError, match="bvh4_walk"):  # rays on the CPU
+        bw.bvh4_walk(m4.table, org.cpu(), org, torch.zeros(8, device=dev),
+                     on, m4.node_end, m4.stride)
+    shifted = torch.zeros(m4.table.numel() + 1, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):  # table off by 4 B
+        bw.bvh4_walk(shifted.view_as(m4.table).copy_(m4.table), org, org,
+                     torch.zeros(8, device=dev), on, m4.node_end, m4.stride)
     table = torch.zeros(16, 256, device=dev)
     start = torch.arange(2, dtype=torch.int32, device=dev)
     d = torch.zeros(32 * 32, 3, device=dev)

@@ -100,8 +100,9 @@ def test_mesh_from_numpy_carries_the_jax_mesh(test_meshes):
 
 
 def test_native_build_raises_past_the_24_bit_entries():
-    """The BVH4 fallback is not ported: a table past the 24-bit entry range
-    raises (sized before any allocation: one leaf of 2^25 triangles)."""
+    """The BVH8 table past its 24-bit entry range raises (sized before any
+    allocation: one leaf of 2^25 triangles); MeshBVH catches it and takes
+    the BVH4 table (tests/test_torch_bvh4.py)."""
     zeros = np.zeros((0, 3), np.float32)
     with pytest.raises(ValueError, match="24-bit"):
         native.bvh8_table(np.zeros((1, 3), np.float32),
