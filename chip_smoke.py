@@ -158,9 +158,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
      node_end, stride and host build seconds; bvh4_walk against its plain
      version (equal) on the ganesha photon bounce-0 and bounce-1 rays and
      on the path-traced pass 0's bounce-1 and bounce-3 rays, with steps per
-     active lane, its event and device ms beside bvh8_walk's on the same
-     rays (phase 9's table), its bound, and the lanes whose hit, t or idx
-     differ from bvh8_walk's (printed, not held); then the ganesha
+     active lane, the kernel's own steps from its plain emulation
+     bvh4_walk_cached_plain (required equal too: table loads mean and max,
+     path-cache hits and misses, two-row leaf steps, the share of returns
+     served from the cache), its CUDA-event ms and its device ms (events
+     around launches enqueued behind a device sleep) beside bvh8_walk's on
+     the same rays (phase 9's table), its bound and share of it, and the
+     lanes whose hit, t or idx differ from bvh8_walk's (required 0); then
+     the ganesha
      600x600 10-iteration PPM render (phase 11's gates) and the
      path-traced 600x600 spp=8 b=8 render (phase 13's gates) on it, with
      launches, first seconds and walls beside phases 11 and 13; (b)
@@ -168,7 +173,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
      triangles), written to chiprun_out/ (removed at the phase's end):
      native.bvh8_table refuses it (its rows against 2^24 / 8), build_pt
      takes the BVH4 walk (rows, table MB, host seconds of the BVH build,
-     the walk table and the tile table), the path-traced render on it
+     the walk table and the tile table), bvh4_walk on its path-traced
+     pass 0's bounce-1 and bounce-3 rays as in (a), the path-traced
+     render on it
      holds phase 13's gates, and the ganesha CLI renders it at 600x600 (2
      iterations, map lengths printed beside the reference's) and prints
      its statistics with -stop-after-bvh.
@@ -2504,20 +2511,164 @@ def pt_render_gates(torch, np, dev, render, scene, name, renders):
                 walls_s=json.dumps([round(w, 4) for w in walls])), launches
 
 
+def held_ms(torch, fn, reps: int = 5, batch: int = 10) -> float:
+    """Median device ms per call of fn: CUDA events around `batch` calls
+    that the host enqueues while a device sleep holds the stream, so the
+    events time the kernels back to back, not the host's launches.
+    (torch.profiler, late in this process, now and then records none of
+    the ctypes launches.) A turn counts only if the host finished
+    enqueueing before the sleep ended, by the sleep's own events, with a
+    fifth of it to spare; else the sleep doubles and the turn is taken
+    again."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = 4_000_000, []  # ~2 ms at the H100's clocks
+    while len(times) < reps:
+        slept = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        slept.record()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(batch):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if host_ms < 0.8 * slept.elapsed_time(start):
+            times.append(start.elapsed_time(end) / batch)
+        else:
+            require(cycles < 1 << 30, f"held_ms: the host took {host_ms:.3f}"
+                    " ms to enqueue, longer than any sleep tried")
+            cycles *= 2
+    return statistics.median(times)
+
+
+def cache_counts(torch, bw, args, want) -> dict:
+    """bvh4_walk_cached_plain on args, required equal to the plain walk's
+    outputs `want`: the steps of csrc/bvh4_walk.cu per active lane as it
+    takes them (table loads: the chain of dependent loads, mean and max;
+    node rows at phase > 0 read from the path cache and not; leaf steps
+    that test two rows) and the share of returns the cache served."""
+    *got, counts = bw.bvh4_walk_cached_plain(*args)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "bvh4_walk_cached_plain differs from bvh4_walk_plain")
+    c = counts[args[4]]
+    hits, misses, two = (int(x) for x in c[:, 1:].sum(dim=0))
+    return dict(loads_mean=f"{float(c[:, 0].float().mean()):.2f}",
+                loads_max=int(c[:, 0].max()), cache_hits=hits,
+                cache_misses=misses, two_row_steps=two,
+                served_from_cache=f"{hits / max(hits + misses, 1):.4f}")
+
+
+def bvh4_walk_readings(torch, bw, name, args, args8=None, plain=False):
+    """One ray set of phase 15: bvh4_walk against its plain version
+    (required equal) with the plain walk's steps and bound (walk_work),
+    the kernel's own steps (cache_counts), its CUDA-event ms (host cost
+    included) and device ms (held_ms); with args8 (phase 9's BVH8 table,
+    the same rays) bvh8_walk's ms beside it and the lanes whose hit, t or
+    idx differ (required 0); with `plain` the plain version's ms. Prints
+    the phase line; returns the set's record."""
+    n = args[1].shape[0]
+    t0 = time.perf_counter()
+    want, fields, w_bound = walk_work(torch, bw, args, walk="bvh4")
+    fields.update(plain_count_steps_s=f"{time.perf_counter() - t0:.3f}",
+                  **cache_counts(torch, bw, args, want))
+    got = bw.bvh4_walk(*args)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    kms = time_ms(torch, lambda: bw.bvh4_walk(*args))
+    dev_ms = held_ms(torch, lambda: bw.bvh4_walk(*args))
+    rec = dict(ms=kms, device_ms=dev_ms, bound_ms=w_bound["bound_ms"],
+               bound_by=w_bound["bound_by"],
+               steps_mean=float(fields["steps_mean"]),
+               steps_max=fields["steps_max"],
+               loads_mean=float(fields["loads_mean"]),
+               loads_max=fields["loads_max"],
+               served_from_cache=float(fields["served_from_cache"]))
+    if plain:
+        rec["err"] = 0.0 if exact else max(
+            float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want))
+        rec["plain_ms"] = time_ms(torch, lambda: bw.bvh4_walk_plain(*args),
+                                  reps=2, batch=1)
+        fields["plain_ms"] = f"{rec['plain_ms']:.4f}"
+    if args8 is not None:
+        got8 = bw.bvh8_walk(*args8)
+        rec["bvh8_ms"] = time_ms(torch, lambda: bw.bvh8_walk(*args8))
+        rec["bvh8_device_ms"] = held_ms(torch, lambda: bw.bvh8_walk(*args8))
+        differ = dict(hit=int((got[4] != got8[4]).sum()),
+                      t=int((got[0] != got8[0]).sum()),
+                      idx=int(((got[3] != got8[3]) & (got[4] | got8[4]))
+                              .sum()))
+        fields.update(bvh8_ms=f"{rec['bvh8_ms']:.4f}",
+                      bvh8_device_ms=f"{rec['bvh8_device_ms']:.4f}",
+                      lanes_differ_from_bvh8=json.dumps(differ))
+        require(sum(differ.values()) == 0,
+                f"bvh4_walk ({name}): lanes differ from bvh8_walk {differ}")
+    phase("bvh4_walk", shape=f"{name}:{n}_lanes", equal=exact,
+          ms=f"{kms:.4f}", device_ms=f"{dev_ms:.4f}",
+          share_of_bound=f"{w_bound['bound_ms'] / dev_ms:.4f}",
+          hits=int(got[4].sum()), bound_by=w_bound["bound_by"], **fields)
+    require(exact, f"bvh4_walk ({name}): the kernel differs from its plain "
+            "version")
+    return rec
+
+
+def bvh4_ray_sets(mesh, scene, cam, lights, dev, photons=True) -> dict:
+    """The BVH4 walk's inputs on `mesh`, as the renders make them: the
+    ganesha photon pass's bounces 0 and 1 (with `photons`) and the
+    path-traced pass 0's bounces 1 and 3 (600x600, spp 8, 8 bounces)."""
+    from pathtracer_tpu_torch import ppm
+    from pathtracer_tpu_torch.integrator import MeshRenderer
+    from pathtracer_tpu_torch.models import shirley
+
+    sets = {}
+    if photons:
+        trace, _, _ = ppm.make_photon_pass(scene, lights, PPM_PHOTONS,
+                                           PPM_BOUNCES, mesh)
+        photon_in = recorded_walks(mesh, lambda: trace(0))
+        sets.update(photon_b0=photon_in[0], photon_b1=photon_in[1])
+    r = MeshRenderer(scene, cam, shirley.BACKGROUND, PT_SIZE, PT_SIZE,
+                     PT_SPP, PT_BOUNCES, dev, mesh)
+    pt_in = recorded_walks(mesh, lambda: r.trace_pass(0))
+    sets.update(pt_b1=pt_in[0], pt_b3=pt_in[2])
+    return sets
+
+
+def bvh4_sub4_ply(np) -> tuple:
+    """big_ganesha subdivided 4:1 (1,797,408 triangles, past the BVH8
+    table's range), written to OUT: (its path, vertices, faces).
+    The caller removes the 34 MB file."""
+    from pathtracer_tpu_torch.io import ply
+
+    p = ply.load(GANESHA_PLY)
+    verts = np.stack([np.asarray(p.data["vertex"][k], np.float64)
+                      for k in "xyz"], axis=1)
+    verts, faces = subdivide(np, verts, np.asarray(
+        p.data["vertex_indices"]["vertex_indices"], np.int64))
+    verts = verts.astype(np.float32).astype(np.float64)  # as the file holds
+    os.makedirs(OUT, exist_ok=True)
+    sub_ply = os.path.join(OUT, "big_ganesha_sub4.ply")
+    ply.write_mesh(sub_ply, verts, faces)
+    return sub_ply, verts, faces
+
+
 def bvh4_phases(torch, np, dev, smi, rend):
     """Phase 15: the BVH4 walk. (a) phase 9's triangles on the BVH4 table:
     bvh4_walk against its plain version and beside bvh8_walk on four ray
-    sets, and the ganesha PPM and path-traced renders through it; (b)
-    big_ganesha subdivided 4:1 (1,797,408 triangles), past the BVH8
-    table's range, through build_pt and the ganesha CLI. rend: phase 9's
+    sets (bvh4_walk_readings), and the ganesha PPM and path-traced renders
+    through it; (b) big_ganesha subdivided 4:1 (1,797,408 triangles), past
+    the BVH8 table's range, through build_pt, bvh4_walk on two ray sets,
+    the path-traced render and the ganesha CLI. rend: phase 9's
     PPMRenderer (its mesh on the BVH8 table). Returns (the JSON entry of
     bvh4_walk without launches, {render path: launches})."""
     import functools
     from unittest import mock
 
     from pathtracer_tpu_torch import native, ppm
-    from pathtracer_tpu_torch.integrator import MeshRenderer, make_render_fn
-    from pathtracer_tpu_torch.io import ply
+    from pathtracer_tpu_torch.integrator import make_render_fn
     from pathtracer_tpu_torch.models import ganesha, shirley
     from pathtracer_tpu_torch.ops.bvh import MeshBVH, build_walk_table4
     from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
@@ -2553,64 +2704,13 @@ def bvh4_phases(torch, np, dev, smi, rend):
     require(mesh.walk == "bvh4" and np.array_equal(mesh.tri_a, mesh8.tri_a),
             "the BVH4 mesh holds other triangles than phase 9's")
 
-    # the walk's inputs: the ganesha photon pass's bounces 0 and 1, and the
-    # path-traced pass 0's bounces 1 and 3
-    trace, _, _ = ppm.make_photon_pass(scene, lights, PPM_PHOTONS,
-                                       PPM_BOUNCES, mesh)
-    photon_in = recorded_walks(mesh, lambda: trace(0))
-    r = MeshRenderer(scene, cam, bg, PT_SIZE, PT_SIZE, PT_SPP, PT_BOUNCES,
-                     dev, mesh)
-    pt_in = recorded_walks(mesh, lambda: r.trace_pass(0))
-    sets = {"photon_b0": photon_in[0], "photon_b1": photon_in[1],
-            "pt_b1": pt_in[0], "pt_b3": pt_in[2]}
+    # the walk on its ray sets, beside bvh8_walk on the same rays
     walk = {}
-    for name, rays in sets.items():
-        args = (mesh.table, *rays, mesh.node_end, mesh.stride)
-        args8 = (mesh8.table, *rays, mesh8.node_end, mesh8.stride)
-        n = rays[0].shape[0]
-        t0 = time.perf_counter()
-        want, fields, w_bound = walk_work(torch, bw, args, walk="bvh4")
-        plain_s = time.perf_counter() - t0
-        got8 = bw.bvh8_walk(*args8)
-        ms8 = time_ms(torch, lambda: bw.bvh8_walk(*args8))
-        _, per8, _, _ = device_times(torch, lambda: bw.bvh8_walk(*args8),
-                                     reps=5)
-        got = bw.bvh4_walk(*args)
-        torch.cuda.synchronize()
-        fields.update(
-            bvh8_ms=f"{ms8:.4f}",
-            bvh8_device_ms=device_ms_field(per8, "bvh8_walk_kernel"),
-            lanes_differ_from_bvh8=json.dumps(dict(
-                hit=int((got[4] != got8[4]).sum()),
-                t=int((got[0] != got8[0]).sum()),
-                idx=int(((got[3] != got8[3]) & (got[4] | got8[4])).sum()))),
-            hits=int(got[4].sum()), plain_count_steps_s=f"{plain_s:.3f}",
-            bound_by=w_bound["bound_by"])
-        if name == "photon_b0":  # the JSON line's ms and plain_ms
-            err, kms, plain_ms, _ = compare(
-                torch, "bvh4_walk", lambda: bw.bvh4_walk(*args),
-                lambda: bw.bvh4_walk_plain(*args), f"{name}:{n}_lanes",
-                kernel="bvh4_walk_kernel", plain_reps=2, plain_batch=1,
-                plain_prof=1, **fields)
-            dev_ms = KERNEL_DEVICE_MS["bvh4_walk"]
-        else:
-            exact = all(torch.equal(g, w) for g, w in zip(got, want))
-            kms = time_ms(torch, lambda: bw.bvh4_walk(*args))
-            _, per, _, _ = device_times(torch, lambda: bw.bvh4_walk(*args),
-                                        reps=5)
-            dev_ms = (kernel_ms(per, "bvh4_walk_kernel") if any(
-                "bvh4_walk_kernel" in k for k in per) else None)
-            phase("bvh4_walk", shape=f"{name}:{n}_lanes", equal=exact,
-                  ms=f"{kms:.4f}",
-                  device_ms=device_ms_field(per, "bvh4_walk_kernel"),
-                  **fields)
-            require(exact, f"bvh4_walk ({name}): the kernel differs from "
-                    "its plain version")
-        walk[name] = dict(ms=kms, device_ms=dev_ms,
-                          bound_ms=w_bound["bound_ms"],
-                          bound_by=w_bound["bound_by"], bvh8_ms=ms8,
-                          steps_mean=float(fields["steps_mean"]),
-                          steps_max=fields["steps_max"])
+    for name, rays in bvh4_ray_sets(mesh, scene, cam, lights, dev).items():
+        walk[name] = bvh4_walk_readings(
+            torch, bw, name, (mesh.table, *rays, mesh.node_end, mesh.stride),
+            (mesh8.table, *rays, mesh8.node_end, mesh8.stride),
+            plain=name == "photon_b0")
 
     # the ganesha PPM render on the BVH4 table, phase 11's gates
     rend4 = ppm.PPMRenderer(scene, cam, lights, PPM_SIZE, PPM_SIZE,
@@ -2678,15 +2778,7 @@ def bvh4_phases(torch, np, dev, smi, rend):
           launches=json.dumps(launches), gpu=json.dumps(smi), **fields)
 
     # --- 15b. a mesh past the BVH8 table's range ---------------------------
-    p = ply.load(GANESHA_PLY)
-    verts = np.stack([np.asarray(p.data["vertex"][k], np.float64)
-                      for k in "xyz"], axis=1)
-    verts, faces = subdivide(np, verts, np.asarray(
-        p.data["vertex_indices"]["vertex_indices"], np.int64))
-    verts = verts.astype(np.float32).astype(np.float64)  # as the file holds
-    os.makedirs(OUT, exist_ok=True)
-    sub_ply = os.path.join(OUT, "big_ganesha_sub4.ply")
-    ply.write_mesh(sub_ply, verts, faces)
+    sub_ply, verts, faces = bvh4_sub4_ply(np)
     t0 = time.perf_counter()
     scene_b, cam_b, _, mesh_b = ganesha.build_pt(sub_ply, 1.0, dev)
     build_pt_s = time.perf_counter() - t0
@@ -2729,6 +2821,12 @@ def bvh4_phases(torch, np, dev, smi, rend):
           table_mb=f"{mesh_b.table_np.nbytes / 1e6:.1f}",
           build_pt_s=f"{build_pt_s:.3f}", bvh_build_s=f"{bvh_s:.3f}",
           walk_table_s=f"{table_s:.3f}", tile_table_s=f"{tile_s:.3f}")
+    # the walk on the path-traced pass 0's rays on this mesh
+    for name, rays in bvh4_ray_sets(mesh_b, scene_b, cam_b, None, dev,
+                                    photons=False).items():
+        walk[f"sub4_{name}"] = bvh4_walk_readings(
+            torch, bw, f"sub4_{name}",
+            (mesh_b.table, *rays, mesh_b.node_end, mesh_b.stride))
     fields, launches = pt_render_gates(
         torch, np, dev, make_render_fn(cam_b, bg, PT_SIZE, PT_SIZE, PT_SPP,
                                        PT_BOUNCES, dev, mesh=mesh_b),
@@ -2784,17 +2882,19 @@ def bvh4_phases(torch, np, dev, smi, rend):
 
     b0 = walk["photon_b0"]
     kernel = entry(
-        "bvh4_walk", "bvh4_walk.cu", "bvh.py:1038", err, b0["ms"], plain_ms,
-        **{k: b0[k] for k in ("bound_ms", "bound_by")},
+        "bvh4_walk", "bvh4_walk.cu", "bvh.py:1038", b0["err"], b0["ms"],
+        b0["plain_ms"], **{k: b0[k] for k in ("bound_ms", "bound_by")},
         shape="ganesha photon bounce-0 rays on the BVH4 table, 75776 lanes",
-        lanes_per_ray=bw.BVH4_LANES_PER_RAY, device_ms=b0["device_ms"],
-        bvh8_walk_ms=b0["bvh8_ms"],
+        lanes_per_ray=bw.BVH4_LANES_PER_RAY,
+        cache_rows=bw.BVH4_CACHE_ROWS, device_ms=b0["device_ms"],
+        bvh8_walk_ms=b0["bvh8_ms"], bvh8_walk_device_ms=b0["bvh8_device_ms"],
         **{f"{key}_{name}": w[key] for name, w in walk.items()
            if name != "photon_b0"
            for key in ("ms", "device_ms", "bound_ms", "bound_by",
-                       "bvh8_ms")},
-        steps_mean={name: w["steps_mean"] for name, w in walk.items()},
-        steps_max={name: w["steps_max"] for name, w in walk.items()})
+                       "bvh8_ms", "bvh8_device_ms") if key in w},
+        **{key: {name: w[key] for name, w in walk.items()}
+           for key in ("steps_mean", "steps_max", "loads_mean", "loads_max",
+                       "served_from_cache")})
     return kernel, path_launches
 
 

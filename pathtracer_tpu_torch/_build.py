@@ -126,6 +126,8 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.pt_error_string.argtypes = [ctypes.c_int]
     lib.pt_error_string.restype = ctypes.c_char_p
+    lib.pt_bvh4_cache_rows.argtypes = []
+    lib.pt_bvh4_cache_rows.restype = ctypes.c_int
     _lib = lib
     return lib
 

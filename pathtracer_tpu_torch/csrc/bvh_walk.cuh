@@ -1,7 +1,8 @@
 // What the two re-entry walks share: bvh8_walk.cu and bvh4_walk.cu. Their
-// tables hold triangle-pair rows of one format (ops/bvh.py), so the
-// triangle step is one definition here, with the NaN-propagating min and
-// max of the slab tests and the Moller-Trumbore test.
+// tables hold triangle-pair rows of one format (ops/bvh.py): the Moller-
+// Trumbore test is one definition here, with the NaN-propagating min and
+// max of the slab tests; bvh8_walk.cu combines a pair row's two tests
+// (tri_pair), bvh4_walk.cu two pair rows' four (tri_quad).
 //
 // The triangle pair. The sequential walk tests the first triangle against
 // the best t0, then the second against the result. Let ok_j be test j
@@ -11,6 +12,25 @@
 // still t0, and the second accepts iff ok2. So the second wins iff ok2 &&
 // (!ok1 || tt2 <= tt1), a tie tt2 == tt1 included; else the first wins
 // iff ok1. An accepted tt is >= 0, never NaN.
+//
+// Four triangles (bvh4_walk.cu's leaf step: two pair rows). The walk tests
+// triangles 1..m in order, each against the best so far. Let ok_j be test
+// j accepting against the best t0 before the step, and best_j the best
+// after j. Claim: best_{j-1} = min(t0, {tt_i : i < j, ok_i}). For j = 1
+// it is t0. If test j accepts in the walk, its other conditions hold and
+// tt_j <= best_{j-1} <= t0, so ok_j, and best_j = tt_j = min(best_{j-1},
+// tt_j). If it does not, either !ok_j (the set gains nothing) or ok_j and
+// tt_j > best_{j-1} (the minimum keeps its value): best_j = best_{j-1}
+// either way, the claim for j + 1. So test j accepts in the walk iff ok_j
+// and tt_j <= min(t0, {tt_i : i < j, ok_i}). Let A = {j : ok_j} be non-
+// empty and M = min over A of tt_j. The walk's final best is its last
+// accepted test's tt, and equals min(t0, M) = M (M <= t0): the winner w
+// has tt_w = M. Every j in A with tt_j = M accepts (M is at most every
+// earlier accepted tt, and at most t0), and no test after w accepts, so w
+// is the last j in A with tt_j = M: the latest accepted triangle of least
+// t, ties included. With A empty nothing changes. For m = 2 this is the
+// pair's rule above. A triangle that the walk would not reach (the second
+// row's, after a leaf's last row) is left out of A.
 //
 // Numerics, kept equal to the plain versions (and to the JAX walks):
 // - min and max propagate NaN (jnp.minimum / maximum, torch.minimum /
@@ -96,6 +116,41 @@ __device__ __forceinline__ void tri_pair(const float* r, const int* ri,
     ub = uu1;
     vb = vv1;
     ib = ri[9];
+  }
+}
+
+// The leaf step's combine for a group of 4 lanes of one ray: lane g
+// holds triangle g's test against the best before the step (ok, its tt,
+// uu, vv and index id), the group's lanes are gmask from lane `shift`.
+// Two xor-shuffle rounds leave in every lane the least (key, -g), key =
+// tt where ok, else +inf: the latest accepted triangle of least t (the
+// proof above; an accepted tt is finite, <= tb <= BIG). Where it is
+// accepted, the group's best (tb, ub, vb, ib) becomes it, in all lanes.
+__device__ __forceinline__ void tri_quad(bool ok, float tt, float uu,
+                                         float vv, int id, int g,
+                                         unsigned gmask, int shift,
+                                         float& tb, float& ub, float& vb,
+                                         int& ib) {
+  const float inf = __int_as_float(0x7f800000);
+  float key = ok ? tt : inf;
+  int w = g;
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1) {
+    const float k2 = __shfl_xor_sync(gmask, key, m);
+    const int w2 = __shfl_xor_sync(gmask, w, m);
+    if (k2 < key || (k2 == key && w2 > w)) {
+      key = k2;
+      w = w2;
+    }
+  }
+  const float uw = __shfl_sync(gmask, uu, shift + w);
+  const float vw = __shfl_sync(gmask, vv, shift + w);
+  const int iw = __shfl_sync(gmask, id, shift + w);
+  if (key < inf) {
+    tb = key;
+    ub = uw;
+    vb = vw;
+    ib = iw;
   }
 }
 

@@ -6,6 +6,8 @@ and make_mesh_traverser_bvh4 (XLA while_loops there, not Pallas kernels).
 `bvh8_walk` launches csrc/bvh8_walk.cu and `bvh4_walk` csrc/bvh4_walk.cu
 for CUDA tensors, and each runs its plain version (`bvh8_walk_plain`,
 `bvh4_walk_plain`: the JAX step in torch over all lanes) for CPU tensors.
+`bvh4_walk_cached_plain` emulates csrc/bvh4_walk.cu's steps (its path
+cache of node rows, its leaf step over two pair rows) and counts them.
 
 Semantics of the JAX walks, kept exactly:
 - a lane starts at its direction octant's root row, oct * W * stride with
@@ -36,12 +38,15 @@ import torch
 from ... import _build
 from .sphere_kernel import BIG
 
-__all__ = ["bvh4_walk", "bvh4_walk_plain", "bvh8_walk",
-           "bvh8_walk_plain"]
+__all__ = ["bvh4_walk", "bvh4_walk_cached_plain", "bvh4_walk_plain",
+           "bvh8_walk", "bvh8_walk_plain"]
 
 # lanes of each kernel per ray, one child of a node row each
 LANES_PER_RAY = 8
 BVH4_LANES_PER_RAY = 4
+# node rows of csrc/bvh4_walk.cu's per-ray path cache (its K, which the
+# library reports and bvh4_walk checks)
+BVH4_CACHE_ROWS = 4
 _EPS = float(np.float32(1e-6))
 _SHIFTS = (0, 8, 16, 24)
 
@@ -68,10 +73,10 @@ def _check(what, table, org, d, t_max0, active, contiguous: bool):
             f"{active.dtype}")
 
 
-def _mt_update(org, d, rows, rows_i, c, best, is_tri):
+def _mt_test(org, d, rows, rows_i, c, tb):
     """Moller-Trumbore against the triangle at row columns [c, c+9), index
-    at column c+9, in the kernel's order; `is_tri` lanes accept t <= best."""
-    tb, ub, vb, ib = best
+    at column c+9, in the kernel's order: (accepts with t <= tb, t, u, v,
+    index)."""
     ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = rows[:, c:c + 9].unbind(1)
     o0, o1, o2 = org.unbind(1)
     d0, d1, d2 = d.unbind(1)
@@ -87,10 +92,19 @@ def _mt_update(org, d, rows, rows_i, c, best, is_tri):
     qvz = tvx * e1y - tvy * e1x
     vv = det_inv * (d0 * qvx + d1 * qvy + d2 * qvz)
     tt = det_inv * (e2x * qvx + e2y * qvy + e2z * qvz)
-    ok = (is_tri & (torch.abs(det) >= _EPS) & (uu >= 0.0) & (uu <= 1.0)
+    ok = ((torch.abs(det) >= _EPS) & (uu >= 0.0) & (uu <= 1.0)
           & (vv >= 0.0) & (uu + vv <= 1.0) & (tt >= 0.0) & (tt <= tb))
+    return ok, tt, uu, vv, rows_i[:, c + 9]
+
+
+def _mt_update(org, d, rows, rows_i, c, best, is_tri):
+    """_mt_test against the best t, u, v, idx; `is_tri` lanes take the
+    triangle where it accepts (t <= best)."""
+    tb, ub, vb, ib = best
+    ok, tt, uu, vv, ii = _mt_test(org, d, rows, rows_i, c, tb)
+    ok = ok & is_tri
     return (torch.where(ok, tt, tb), torch.where(ok, uu, ub),
-            torch.where(ok, vv, vb), torch.where(ok, rows_i[:, c + 9], ib))
+            torch.where(ok, vv, vb), torch.where(ok, ii, ib))
 
 
 def _step8(table, table_i, node_end8: int, done: int, org, d, inv_d,
@@ -154,36 +168,44 @@ def _step8(table, table_i, node_end8: int, done: int, org, d, inv_d,
     return (nxt, lret) + tuple(best)
 
 
-def _step4(table, table_i, node_end4: int, done: int, org, d, inv_d, state):
-    """One step of the JAX BVH4 walk body on every given lane (the identity
-    on a lane at the done pointer). state = (ptr, lret, t, u, v, idx)."""
-    ptr, lret, *best = state
+def _node4(rows, rows_i, ptr, org, inv_d, tb, node_end4: int):
+    """A BVH4 node row's step for lanes at pointer ptr with best t tb:
+    (the next pointer, the leaf-return pointer where a leaf child is
+    entered, whether one is)."""
     dev = ptr.device
     iota4 = torch.arange(4, device=dev)
-    rows = table[ptr >> 2]  # (n, 32): one row per lane and step
-    rows_i = table_i[ptr >> 2]
     phase = ptr & 3
-    is_node = ptr < node_end4
-
-    # node: 4 world-space slab tests (a NaN pad box never hits)
+    # 4 world-space slab tests (a NaN pad box never hits)
     boxes = rows[:, 0:24].reshape(-1, 4, 6)
     t0 = (boxes[:, :, 0:3] - org[:, None, :]) * inv_d[:, None, :]
     t1 = (boxes[:, :, 3:6] - org[:, None, :]) * inv_d[:, None, :]
     tn = torch.amax(torch.minimum(t0, t1), dim=-1)
     tf = torch.amin(torch.maximum(t0, t1), dim=-1)
     zero = torch.zeros((), device=dev)
-    bh = torch.maximum(tn, zero) <= torch.minimum(tf, best[0][:, None])
+    bh = torch.maximum(tn, zero) <= torch.minimum(tf, tb[:, None])
     bh = bh & (iota4 >= phase[:, None])
-    any_hit = bh.any(dim=1) & is_node
+    any_hit = bh.any(dim=1)
     sel = torch.where(bh, iota4, 4).amin(dim=1)
     sel = torch.where(sel == 4, 0, sel)
     e_sel = rows_i[:, 24:28].gather(1, sel[:, None])[:, 0].long()
     skp = rows_i[:, 28].long()
-    nxt_node = torch.where(any_hit, e_sel, skp)
+    nxt = torch.where(any_hit, e_sel, skp)
     # child sel's exit: this row at phase sel+1, the row's exit after the
     # last child
     exit_sel = torch.where(sel == rows_i[:, 29] - 1, skp,
                            (ptr & ~3) + sel + 1)
+    return nxt, exit_sel, any_hit & (e_sel >= node_end4)
+
+
+def _step4(table, table_i, node_end4: int, done: int, org, d, inv_d, state):
+    """One step of the JAX BVH4 walk body on every given lane (the identity
+    on a lane at the done pointer). state = (ptr, lret, t, u, v, idx)."""
+    ptr, lret, *best = state
+    rows = table[ptr >> 2]  # (n, 32): one row per lane and step
+    rows_i = table_i[ptr >> 2]
+    is_node = ptr < node_end4
+    nxt_node, exit_sel, enter_leaf = _node4(rows, rows_i, ptr, org, inv_d,
+                                            best[0], node_end4)
 
     # triangle pair: the first, then the second against the new best
     is_tri = ~is_node
@@ -193,24 +215,22 @@ def _step4(table, table_i, node_end4: int, done: int, org, d, inv_d, state):
     nxt_tri = torch.where(rows[:, 10] > 0.5, lret, ptr + 4)
     nxt = torch.where(is_node, nxt_node, nxt_tri)
     nxt = torch.where(ptr == done, done, nxt)
-    lret = torch.where(is_node & any_hit & (e_sel >= node_end4),
-                       exit_sel, lret)
+    lret = torch.where(is_node & enter_leaf, exit_sel, lret)
     return (nxt, lret) + tuple(best)
 
 
-def _walk_plain(what, step, phases: int, table, org, d, t_max0, active,
-                node_end: int, stride: int, check_every: int,
-                count_steps: bool):
-    """The JAX walk with `step` (_step8 or _step4, pointers row * phases +
-    phase) until no lane is live. Every `check_every` steps the live lanes
-    are read on the host and only they step on (a step of a finished lane
-    is the identity, so this changes no result). Returns (t, u, v, idx
-    int32, hit); with count_steps also the steps each lane took, (N, 2)
-    int64 [node rows, triangle-pair rows], and the (R,) bool mask of the
-    table rows read (what a bound on the walk's work counts)."""
+def _walk(what, step, phases: int, table, org, d, t_max0, active,
+          node_end: int, stride: int, check_every: int, extra=(),
+          on_steps=None):
+    """The JAX walk with `step` (_step8, _step4 or _cached_step4, pointers
+    row * phases + phase) until no lane is live. The state is (ptr, lret,
+    t, u, v, idx) and the tensors of `extra`, one row per lane. Every
+    `check_every` steps the live lanes are read on the host and only they
+    step on (a step of a finished lane is the identity, so this changes no
+    result); on_steps(live, state) sees each step's live lanes before it.
+    Returns (t_lim, the final state)."""
     _check(what, table, org, d, t_max0, active, contiguous=False)
     n, dev = org.shape[0], org.device
-    row_shift = phases.bit_length() - 1
     done = phases * (table.shape[0] - 1)
     node_end_p = phases * node_end
     table_i = table.view(torch.int32)
@@ -222,9 +242,7 @@ def _walk_plain(what, step, phases: int, table, org, d, t_max0, active,
     state = [ptr, torch.full_like(ptr, done), t_lim.clone(),
              torch.zeros_like(t_lim),
              torch.zeros_like(t_lim),
-             torch.zeros(n, dtype=torch.int32, device=dev)]
-    steps = torch.zeros(n, 2, dtype=torch.int64, device=dev)
-    visited = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
+             torch.zeros(n, dtype=torch.int32, device=dev), *extra]
     while True:
         live = torch.nonzero(state[0] != done)[:, 0]
         if live.numel() == 0:
@@ -232,14 +250,37 @@ def _walk_plain(what, step, phases: int, table, org, d, t_max0, active,
         sub = tuple(x[live] for x in state)
         o, dd, idd = org[live], d[live], inv_d[live]
         for _ in range(check_every):
-            if count_steps:
-                p = sub[0]
-                steps[live, 0] += p < node_end_p
-                steps[live, 1] += (p >= node_end_p) & (p != done)
-                visited[p[p != done] >> row_shift] = True
+            if on_steps is not None:
+                on_steps(live, sub)
             sub = step(table, table_i, node_end_p, done, o, dd, idd, sub)
         for x, y in zip(state, sub):
             x[live] = y
+    return t_lim, state
+
+
+def _walk_plain(what, step, phases: int, table, org, d, t_max0, active,
+                node_end: int, stride: int, check_every: int,
+                count_steps: bool):
+    """The JAX walk with `step` (_step8 or _step4) on every lane (_walk).
+    Returns (t, u, v, idx int32, hit); with count_steps also the steps
+    each lane took, (N, 2) int64 [node rows, triangle-pair rows], and the
+    (R,) bool mask of the table rows read (what a bound on the walk's work
+    counts)."""
+    dev = org.device
+    row_shift = phases.bit_length() - 1
+    done, node_end_p = phases * (table.shape[0] - 1), phases * node_end
+    steps = torch.zeros(org.shape[0], 2, dtype=torch.int64, device=dev)
+    visited = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
+
+    def count(live, sub):
+        p = sub[0]
+        steps[live, 0] += p < node_end_p
+        steps[live, 1] += (p >= node_end_p) & (p != done)
+        visited[p[p != done] >> row_shift] = True
+
+    t_lim, state = _walk(what, step, phases, table, org, d, t_max0, active,
+                         node_end, stride, check_every,
+                         on_steps=count if count_steps else None)
     t, u, v, idx = state[2:]
     out = (t, u, v, idx, t < t_lim)
     return out + (steps, visited) if count_steps else out
@@ -263,6 +304,119 @@ def bvh4_walk_plain(table, org, d, t_max0, active, node_end: int,
     read of count_steps)."""
     return _walk_plain("bvh4_walk", _step4, 4, table, org, d, t_max0,
                        active, node_end, stride, check_every, count_steps)
+
+
+def _leaf_quad(org, d, pair, best):
+    """csrc/bvh4_walk.cu's leaf step on two triangle-pair rows pair (n, 2,
+    32): its four triangles tested against the best (t, u, v, idx) before
+    the step, the second row's only where the first is not the leaf's
+    last, combined as bvh_walk.cuh's tri_quad (the latest accepted
+    triangle of least t). Returns (the new best, last0, last1)."""
+    tb, ub, vb, ib = best
+    last0, last1 = pair[:, 0, 10] > 0.5, pair[:, 1, 10] > 0.5
+    tests = [_mt_test(org, d, pair[:, j >> 1],
+                      pair[:, j >> 1].view(torch.int32), 12 * (j & 1), tb)
+             for j in range(4)]
+    inf = torch.tensor(float("inf"), device=org.device)
+    key = torch.stack([torch.where(ok & ~last0 if j >= 2 else ok, tt, inf)
+                       for j, (ok, tt, *_) in enumerate(tests)], dim=1)
+    k_min = key.amin(dim=1)
+    win = 3 - torch.flip(key == k_min[:, None], [1]).int().argmax(dim=1)
+    take = k_min < inf
+    uu, vv, ii = (torch.stack([x[c] for x in tests], dim=1)
+                  .gather(1, win[:, None])[:, 0] for c in (2, 3, 4))
+    return (torch.where(take, k_min, tb), torch.where(take, uu, ub),
+            torch.where(take, vv, vb), torch.where(take, ii, ib)), last0, last1
+
+
+def _cached_step4(table, table_i, node_end4: int, done: int, org, d,
+                  inv_d, state):
+    """One step of csrc/bvh4_walk.cu on every given lane (the identity on a
+    lane at the done pointer): a node row from the path cache or the table,
+    or a leaf's next two triangle-pair rows. state = (ptr, lret, t, u, v,
+    idx, top, cnt, tags (n, K), rows (n, K, 32), counts (n, 4)); see
+    bvh4_walk_cached_plain."""
+    ptr, lret, tb, ub, vb, ib, top, cnt, tags, cached, counts = state
+    n, k = tags.shape
+    dev = ptr.device
+    lanes = torch.arange(n, device=dev)
+    row = ptr >> 2
+    live = ptr != done
+    is_node = ptr < node_end4
+    is_leaf = live & ~is_node
+
+    # a node row at phase > 0 is looked up in the cache's cnt newest slots:
+    # a hit pops the slots above it, a miss empties the cache (every row in
+    # it lies below the missed one on the ray's path)
+    slots = torch.arange(k, device=dev)
+    back = is_node & ((ptr & 3) > 0)
+    newest = ((top[:, None] - slots) & (k - 1)) < cnt[:, None]
+    match = back[:, None] & newest & (tags == row[:, None])
+    hit = match.any(dim=1)
+    slot = torch.where(match, slots, k).amin(dim=1)
+    cnt = torch.where(hit, cnt - ((top - slot) & (k - 1)), cnt)
+    top = torch.where(hit, slot, top)
+    miss = back & ~hit
+    cnt = torch.where(miss, 0, cnt)
+    # any other node row is read from the table and pushed, the oldest
+    # slot dropped when the cache is full
+    push = is_node & ~hit
+    top = torch.where(push, (top + 1) & (k - 1), top)
+    cnt = torch.where(push, torch.clamp(cnt + 1, max=k), cnt)
+    pl = lanes[push]
+    tags[pl, top[pl]] = row[pl]
+    cached[pl, top[pl]] = table[row[pl]]
+    rows = cached[lanes, top]
+    nxt_node, exit_sel, enter_leaf = _node4(
+        rows, rows.view(torch.int32), ptr, org, inv_d, tb, node_end4)
+
+    # a leaf's rows two at a time
+    pair = torch.stack([table[row],
+                        table[torch.clamp(row + 1, max=table.shape[0] - 1)]],
+                       dim=1)
+    (t_l, u_l, v_l, i_l), last0, last1 = _leaf_quad(org, d, pair,
+                                                    (tb, ub, vb, ib))
+    tb = torch.where(is_leaf, t_l, tb)
+    ub = torch.where(is_leaf, u_l, ub)
+    vb = torch.where(is_leaf, v_l, vb)
+    ib = torch.where(is_leaf, i_l, ib)
+
+    nxt_leaf = torch.where(last0 | last1, lret, ptr + 8)
+    nxt = torch.where(is_node, nxt_node, nxt_leaf)
+    nxt = torch.where(live, nxt, done)
+    lret = torch.where(is_node & enter_leaf, exit_sel, lret)
+    counts = counts + torch.stack(
+        [push | is_leaf, hit, miss, is_leaf & ~last0], dim=1)
+    return nxt, lret, tb, ub, vb, ib, top, cnt, tags, cached, counts
+
+
+def bvh4_walk_cached_plain(table, org, d, t_max0, active, node_end: int,
+                           stride: int, check_every: int = 8):
+    """Plain emulation of csrc/bvh4_walk.cu's walk: the same results as
+    bvh4_walk_plain, step by step as the kernel takes them. A ray keeps
+    the last BVH4_CACHE_ROWS node rows it read from the table (the
+    kernel's K) in a LIFO path cache with their row indices as tags, and
+    reads a node row at phase > 0 from there where it can; a leaf's
+    triangle-pair rows are tested two at a time, four triangles against
+    the best before them.
+    Returns (t, u, v, idx int32, hit, counts): counts (N, 4) int64 per
+    lane [steps that read the table (a node row not in the cache, or a
+    leaf's next rows): the chain of dependent loads, and the kernel's loop
+    iterations; node rows at phase > 0 read from the cache; node rows at
+    phase > 0 not in it; leaf steps that test two rows]."""
+    n, dev = org.shape[0], org.device
+    k = BVH4_CACHE_ROWS
+    extra = (torch.zeros(n, dtype=torch.int64, device=dev),
+             torch.zeros(n, dtype=torch.int64, device=dev),
+             torch.full((n, k), -1, dtype=torch.int64, device=dev),
+             torch.zeros(n, k, table.shape[1], dtype=table.dtype,
+                         device=dev),
+             torch.zeros(n, 4, dtype=torch.int64, device=dev))
+    t_lim, state = _walk("bvh4_walk", _cached_step4, 4, table, org, d,
+                         t_max0, active, node_end, stride, check_every,
+                         extra=extra)
+    t, u, v, idx = state[2:6]
+    return t, u, v, idx, t < t_lim, state[-1]
 
 
 def _launch(what, entry, lanes_per_ray, phases, table, org, d, t_max0,
@@ -330,6 +484,10 @@ def bvh4_walk(table, org, d, t_max0, active, node_end: int, stride: int):
                                stride)
     if org.device.type != "cuda":
         raise ValueError(f"bvh4_walk: no kernel for {org.device}")
+    k = _build.load().pt_bvh4_cache_rows()
+    if k != BVH4_CACHE_ROWS:
+        raise RuntimeError(f"bvh4_walk: the kernel's path cache holds {k} "
+                           f"rows, BVH4_CACHE_ROWS says {BVH4_CACHE_ROWS}")
     out = _launch("bvh4_walk", "pt_bvh4_walk", BVH4_LANES_PER_RAY, 4, table,
                   org, d, t_max0, active, node_end, stride)
     bvh4_walk.launches += 1

@@ -3,11 +3,19 @@ package: the native BVH4 table (bit for bit), MeshBVH's walk choice and its
 fallback from BVH8 past the 24-bit entries, the plain BVH4 walk
 (bvh4_walk_plain, what the wrapper runs for CPU tensors) against the JAX
 BVH4 MeshBVH.intersect, and the tiny ganesha's path-traced render and
-photon pass with the mesh forced onto BVH4 in both packages.
+photon pass with the mesh forced onto BVH4 in both packages. The plain
+emulation of csrc/bvh4_walk.cu (bvh4_walk_cached_plain: its path cache of
+node rows and its leaf step of two pair rows) against bvh4_walk_plain and
+the JAX walk, and its leaf combine (_leaf_quad) against four sequential
+triangle updates.
 
 Inputs: tests/test_torch_bvh_walk.py's random soup and its 1,111 random
 rays plus 64 rays with exact-zero direction components (the NaN box-plane
-case); scenes/test_ganesha.ply (99,904 triangles); scenes/big_ganesha.ply
+case); a soup of 60 triangles each repeated 1-8 times (exact ties in t
+inside a leaf, leaves of 1-4 pair rows) and scenes/test_ganesha.ply
+(99,904 triangles), each with 1,500 rays leaving its surface (on the tie
+soup 375 of them aimed at it; a quarter inactive, t_max0 3 or 1e30) and
+256 axis-aligned rays; scenes/big_ganesha.ply
 subdivided 4:1 at its edge midpoints (1,797,408 triangles, past the BVH8
 table's 2^24 / 8 rows); the tiny ganesha of tests/test_torch_ganesha_pt.py
 (a 168-triangle uv-sphere over the floor).
@@ -292,3 +300,180 @@ def test_tiny_bvh4_photon_pass_matches_jax(tiny_ply, force_bvh4):
     assert (err <= 1e-4 * np.abs(jpos[ok]).max(axis=1)).all()
     np.testing.assert_array_equal(flux[ok], jflux[ok])
     np.testing.assert_allclose(nrm[ok], jnrm[ok], atol=1e-5)
+
+
+def _tie_mesh(copies=(1, 8), n=60, seed=9):
+    """A soup of n random triangles, each repeated 1-8 times (`copies`):
+    a leaf holds one triangle's copies, so the leaf step meets exact ties
+    in t, and leaves of 1-4 pair rows. Returns (vertices, faces)."""
+    rs = np.random.RandomState(seed)
+    verts = rs.uniform(-5, 5, (3 * n, 3))
+    base = np.arange(3 * n).reshape(n, 3)
+    faces = np.repeat(base, rs.randint(copies[0], copies[1] + 1, n), axis=0)
+    return verts, faces[rs.permutation(len(faces))]
+
+
+def _surface_rays(verts, faces, lo, hi, aimed, n=1500, nz=256, seed=13):
+    """n rays from just off random points of random triangles in uniform
+    random directions (t_max0 1e30 or 3, a quarter inactive; bounce rays'
+    kind),
+    the first `aimed` of them from the box around [lo, hi] aimed at a
+    triangle's point instead, and nz rays with
+    exact-zero direction components from inside [lo, hi], half of them on
+    its low plane of a zeroed axis (0 * inf on a box plane)."""
+    rs = np.random.RandomState(seed)
+    w = rs.dirichlet([1, 1, 1], n)
+    tri = verts[faces[rs.randint(0, len(faces), n)]]
+    org = np.einsum("nk,nkc->nc", w, tri)
+    d = rs.randn(n, 3)
+    aim = np.einsum("nk,nkc->nc", rs.dirichlet([1, 1, 1], n),
+                    verts[faces[rs.randint(0, len(faces), n)]])
+    # off the surface by 0.1% of the box, so no t lies near 0 (where XLA's
+    # FMAs could flip the t >= 0 test)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    org += 1e-3 * float(np.max(hi - lo)) * d
+    org[:aimed] = lo + rs.rand(aimed, 3) * (hi - lo) * 3 - (hi - lo)
+    d[:aimed] = aim[:aimed] - org[:aimed]
+    o2 = lo + rs.rand(nz, 3) * (hi - lo)
+    d2 = rs.randn(nz, 3)
+    for i in range(nz):
+        axes = [i % 3] if i % 2 else [i % 3, (i + 1) % 3]
+        d2[i, axes] = 0.0
+        if i >= nz // 2:
+            o2[i, axes[0]] = lo[axes[0]]
+    t_max = np.concatenate([np.where(rs.rand(n) < 0.5, 3.0, 1e30),
+                            np.full(nz, 1e30)])
+    active = np.concatenate([rs.rand(n) > 0.25, np.ones(nz, bool)])
+    return (np.concatenate([org, o2]).astype(np.float32),
+            np.concatenate([d, d2]).astype(np.float32),
+            t_max.astype(np.float32), active)
+
+
+@pytest.fixture(scope="module", params=["soup", "ties", "test_ganesha"])
+def cached_case(request):
+    """A mesh on the JAX MeshBVH(walk="bvh4") and the port's MeshBVH
+    carried across from it, its rays (the soup's _rays; _surface_rays on
+    the tie soup and test_ganesha) and the JAX walk's results, once per
+    module."""
+    if request.param == "test_ganesha":
+        verts, faces = _ply_mesh(TEST_PLY)
+    else:
+        verts, faces = _tie_mesh() if request.param == "ties" else _mesh()
+    jm = JMeshBVH(verts, faces, np.zeros(12, np.float32), walk="bvh4")
+    m = MeshBVH.from_numpy(dict(
+        nodes_lo=jm.nodes_lo, nodes_hi=jm.nodes_hi, meta_np=jm.meta_np,
+        tri_a=jm.tri_a, tri_e1=jm.tri_e1, tri_e2=jm.tri_e2,
+        mat_row=jm.mat_row, table=jm._table_np, node_end=jm.node_end,
+        stride=jm.stride, depth=jm.depth, watertight=False, walk="bvh4"),
+        CPU)
+    # the tie soup's rays aim at its triangles, so that they meet the ties;
+    # test_ganesha's leave its surface only (an aimed ray may graze one of
+    # its slivers, where XLA's FMAs move u by 1e-3)
+    rays = (_rays(jm.bbox_lo) if request.param == "soup" else _surface_rays(
+        np.asarray(verts, np.float32), faces, m.bbox_lo, m.bbox_hi,
+        aimed=375 if request.param == "ties" else 0))
+    want = [np.asarray(x) for x in jm.intersect(*map(jnp.asarray, rays))]
+    return request.param, m, [torch.from_numpy(x) for x in rays], want
+
+
+def test_cached_walk_equals_plain_and_jax_walk(cached_case):
+    """bvh4_walk_cached_plain (the kernel's path cache and two-row leaf
+    step) equals bvh4_walk_plain bit for bit and the JAX BVH4 walk to this
+    file's tolerances, and its counts add up to the plain walk's steps:
+    node rows = table loads - leaf steps + cache hits, pair rows = leaf
+    steps + two-row steps."""
+    name, m, rays, want = cached_case
+    args = (m.table, *rays, m.node_end, m.stride)
+    *plain, steps, _ = bw.bvh4_walk_plain(*args, count_steps=True)
+    *got, counts = bw.bvh4_walk_cached_plain(*args)
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    t, u, v, idx, hit = (x.numpy() for x in got)
+    jt, ju, jv, jidx, jhit = want
+    np.testing.assert_array_equal(hit, jhit)
+    np.testing.assert_array_equal(idx, jidx)
+    np.testing.assert_allclose(t, jt, rtol=5e-6, atol=1e-6)
+    np.testing.assert_allclose(u, ju, atol=5e-5)
+    np.testing.assert_allclose(v, jv, atol=5e-5)
+    active = rays[3]
+    assert int(hit.sum()) > 100 and not hit[~active.numpy()].any()
+    nz = 64 if name == "soup" else 256
+    assert int(hit[-nz:].sum()) > 2  # some axis-aligned rays hit
+    loads, hits, misses, two = counts.unbind(1)
+    leaf_steps = steps[:, 1] - two
+    assert torch.equal(steps[:, 0], loads - leaf_steps + hits)
+    assert bool((leaf_steps >= 0).all()) and int(counts[~active].max()) == 0
+    # the cache serves most returns (on the shallow tie soup, all of them)
+    assert int(hits.sum()) > int(misses.sum())
+    assert int(misses.sum()) > 0 or name == "ties"
+    assert int(two.sum()) > 0
+    # every return to a row of the path: at most the cache's misses fall
+    # back to the table
+    assert int(loads.max()) < int(steps.sum(dim=1).max())
+
+
+@pytest.mark.parametrize("case", ["random", "same_triangle", "t_at_best",
+                                  "last_first_row"])
+def test_leaf_quad_is_the_sequential_update(case):
+    """The leaf step's combine (_leaf_quad: four triangles of two pair rows
+    against the old best, the latest accepted of least t) equals four
+    sequential _mt_update calls, the plain walk's order, the second row
+    skipped where the first is the leaf's last: on random triangles, on
+    one triangle four times (ties: the fourth wins), with the old best at
+    the first triangle's own t (taken), and with every first row a last
+    row (the second row's nearer triangles are not taken)."""
+    rs = np.random.RandomState(17)
+    n = 4096
+    a = rs.uniform(-2, 2, (4, n, 3))
+    e1 = rs.uniform(-2, 2, (4, n, 3))
+    e2 = rs.uniform(-2, 2, (4, n, 3))
+    if case == "same_triangle":
+        a[1:], e1[1:], e2[1:] = a[0], e1[0], e2[0]
+    org = rs.uniform(-6, 6, (n, 3))
+    w = rs.dirichlet([1, 1, 1], n)
+    k = np.arange(n) % 4
+    aim = (a[k, np.arange(n)] + w[:, 1:2] * e1[k, np.arange(n)]
+           + w[:, 2:3] * e2[k, np.arange(n)])
+    d = aim - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pair = np.zeros((n, 2, 32), np.float32)
+    for j in range(4):
+        c = 12 * (j & 1)
+        pair[:, j >> 1, c:c + 9] = np.concatenate([a[j], e1[j], e2[j]], 1)
+        pair.view(np.int32)[:, j >> 1, c + 9] = j * n + np.arange(n)
+    last0 = (rs.rand(n) < 0.3) | (case == "last_first_row")
+    pair[:, 0, 10] = np.where(last0, 1.0, 0.0)
+    pair[:, 1, 10] = 1.0
+    pair = torch.from_numpy(pair)
+    org = torch.from_numpy(org.astype(np.float32))
+    d = torch.from_numpy(d.astype(np.float32))
+    t0 = torch.from_numpy(np.where(rs.rand(n) < 0.5, 1e30, rs.uniform(
+        0, 12, n)).astype(np.float32))
+    best = (t0, torch.zeros(n), torch.zeros(n),
+            torch.full((n,), -7, dtype=torch.int32))
+    rows = [pair[:, r] for r in (0, 1)]
+    ri = [x.view(torch.int32) for x in rows]
+    every = torch.ones(n, dtype=torch.bool)
+    if case == "t_at_best":
+        first = bw._mt_update(org, d, rows[0], ri[0], 0, best, every)
+        best = (first[0],) + best[1:]
+    want = best
+    for j in range(4):
+        want = bw._mt_update(org, d, rows[j >> 1], ri[j >> 1], 12 * (j & 1),
+                             want, every if j < 2 else ~torch.from_numpy(
+                                 last0))
+    got, g0, g1 = bw._leaf_quad(org, d, pair, best)
+    assert torch.equal(g0, torch.from_numpy(last0)) and bool(g1.all())
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    won = [(want[3] >= j * n) & (want[3] < (j + 1) * n) for j in range(4)]
+    if case == "same_triangle":
+        assert int(won[3].sum()) > 100 and not bool(won[0].any())
+        assert int(won[1].sum()) > 100  # the first row is the leaf's last
+    elif case == "t_at_best":
+        assert int((won[0] & (want[0] == best[0])).sum()) > 100
+    elif case == "last_first_row":
+        assert int((won[0] | won[1]).sum()) > 100
+        assert not bool((won[2] | won[3]).any())
+    else:
+        assert all(int(x.sum()) > 50 for x in won)

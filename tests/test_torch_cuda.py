@@ -39,7 +39,11 @@ The full-variant bounce kernels (fused and intersect_state) walk the
 per-scene sphere hierarchy per warp; their tests check that the walk
 skips leaves, and a copied sphere checks the lowest-index tie rule. The
 BVH8 walk runs LANES_PER_RAY > 1 lanes per ray, the BVH4 walk
-BVH4_LANES_PER_RAY > 1.
+BVH4_LANES_PER_RAY > 1. The BVH4 walk reads node rows at phase > 0 from a
+per-ray path cache and a leaf's pair rows two at a time, four triangles
+against one best: its tests add a soup of duplicated triangles (exact
+ties in t inside a leaf, leaves of 3-4 pair rows), axis-aligned rays and
+lanes that end exactly at t_max0.
 
 The two-kernel bounce (intersect_state, shade_state), the clustered sphere
 kernel and the raster-grid gather must equal their plain versions exactly;
@@ -526,6 +530,94 @@ def test_bvh4_walk_kernel_matches_plain(dev):
     assert 100 < int(hit.sum()) < hit.numel() - 100
     assert int(hit[n:].sum()) > 4 and not bool(hit[~args[3]].any())
     assert bw.BVH4_LANES_PER_RAY > 1
+
+
+def _tie_soup(dev, walk, copies=(5, 8), n=60, seed=9):
+    """A soup of n random triangles, each repeated a number of times drawn
+    from `copies` (so a leaf holds one triangle's copies: 5-8 triangles,
+    3-4 pair rows, exact ties in t), as a MeshBVH on the card, and 3,072
+    rays: 2,048 aimed at the triangles' centroids (t_max0 1e30, 3 or the
+    plain walk's own hit t, an exact tie with the limit; a quarter
+    inactive) and 1,024 with exact-zero direction components from inside
+    the soup's box, half of them on its low plane of a zeroed axis.
+    Returns (mesh, (org, d, t_max0, active) on the card)."""
+    from pathtracer_tpu_torch.ops.bvh import MeshBVH
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    rs = np.random.RandomState(seed)
+    verts = rs.uniform(-5, 5, (3 * n, 3))
+    base = np.arange(3 * n).reshape(n, 3)
+    faces = np.repeat(base, rs.randint(copies[0], copies[1] + 1, n), axis=0)
+    faces = faces[rs.permutation(len(faces))]
+    m = MeshBVH(verts, faces, np.zeros(12, np.float32), dev, walk=walk)
+    nr, nz = 2048, 1024
+    org = rs.uniform(-8, 8, (nr + nz, 3))
+    cen = verts[base[rs.randint(0, n, nr)]].mean(axis=1)
+    d = np.concatenate([cen - org[:nr], rs.randn(nz, 3)])
+    org[nr:] = m.bbox_lo + rs.rand(nz, 3) * (m.bbox_hi - m.bbox_lo)
+    for i in range(nr, nr + nz):
+        axes = [i % 3] if i % 2 else [i % 3, (i + 1) % 3]
+        d[i, axes] = 0.0
+        if i >= nr + nz // 2:
+            org[i, axes[0]] = m.bbox_lo[axes[0]]
+    t_max = np.where(rs.rand(nr + nz) < 0.5, 3.0, 1e30)
+    active = rs.rand(nr + nz) > 0.25
+    active[nr:] = True
+    rays = [torch.from_numpy(x).to(dev) for x in (
+        org.astype(np.float32), d.astype(np.float32),
+        t_max.astype(np.float32), active)]
+    # a third of the aimed lanes end exactly at their own hit's t
+    plain = bw.bvh4_walk_plain if walk == "bvh4" else bw.bvh8_walk_plain
+    t, *_, hit = plain(m.table, rays[0], rays[1],
+                       torch.full_like(rays[2], 1e30), rays[3], m.node_end,
+                       m.stride)
+    at = hit & (torch.arange(nr + nz, device=dev) % 3 == 0)
+    at[nr:] = False
+    rays[2] = torch.where(at, t, rays[2])
+    return m, rays
+
+
+@pytest.mark.parametrize("case", ["ties", "big_leaves", "axis_aligned"])
+def test_bvh4_walk_kernel_matches_plain_on_ties_and_big_leaves(dev, case):
+    """The BVH4 walk on _tie_soup: leaves of one triangle's 1-8 copies
+    (ties: exact ties in t across the leaf step's four triangles, 1-row
+    leaves among them), of 5-8 copies (big_leaves: leaves of 3-4 pair
+    rows, the leaf step taken twice), and the axis-aligned lanes of the
+    latter alone (0 * inf on a box plane); with lanes that end at t_max0
+    exactly."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    copies = (1, 8) if case == "ties" else (5, 8)
+    m, args = _tie_soup(dev, "bvh4", copies)
+    lasts = m.table[m.node_end:-1, 10] > 0.5
+    rows = torch.diff(torch.nonzero(lasts)[:, 0], prepend=torch.tensor(
+        [-1], device=dev))  # pair rows of each leaf
+    assert int(rows.min()) == (copies[0] + 1) // 2 and int(rows.max()) == 4
+    if case == "axis_aligned":
+        args = [x[2048:] for x in args]
+    got = bw.bvh4_walk(m.table, *args, m.node_end, m.stride)
+    want = bw.bvh4_walk_plain(m.table, *args, m.node_end, m.stride)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+    hit = got[4]
+    assert int(hit.sum()) > 100 and not bool(hit[~args[3]].any())
+    if case != "axis_aligned":
+        at = (args[2] == got[0]) & args[3]  # ends exactly at its limit
+        assert int(at.sum()) > 50 and not bool(hit[at].any())
+
+
+def test_bvh8_walk_kernel_matches_plain_on_ties(dev):
+    """The BVH8 walk, whose triangle step shares bvh_walk.cuh with the
+    BVH4 walk's, on the tie soup of 1-8 copies a triangle."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    m, args = _tie_soup(dev, "bvh8", (1, 8))
+    assert m.walk == "bvh8"
+    got = bw.bvh8_walk(m.table, *args, m.node_end, m.stride)
+    want = bw.bvh8_walk_plain(m.table, *args, m.node_end, m.stride)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+    assert int(got[4].sum()) > 100
 
 
 def _ganesha_bvh4(dev, monkeypatch, path):
