@@ -179,6 +179,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
      holds phase 13's gates, and the ganesha CLI renders it at 600x600 (2
      iterations, map lengths printed beside the reference's) and prints
      its statistics with -stop-after-bvh.
+ 16. the seeded shirley scene and 16 bounces: (a) models.shirley.build(
+     seed=7, use_manifest=False) (530 spheres, S = 536): its sphere
+     hierarchy (unconditional spheres, groups, leaves, host build ms), the
+     fused bounce at every bounce of pass 0 (bounce 0 listed over its own
+     tile lists, the rest full over its hierarchy; compacted before bounce
+     3 as the render does) and that compaction equal to their plain
+     versions, intersect_clustered equal to its plain version on the
+     bounce-1 rays (its cluster count and shared memory printed) and to
+     intersect_spheres' hits, then `600x300 spp=32 b=8` of it through
+     make_render_fn: RMSE below 1e-3 against
+     scenes/oracle_shirley_seed7_600x300_spp32_f64.npz and segments within
+     3,000 of its count, launches, and the median wall of 5 warm renders
+     beside phase 4's; (b) one make_render_fn at 160x80 spp=4 b=8 renders
+     seed 42, seed 7, then seed 42 again, each image and segment count
+     equal to a fresh render function's; (c) the seed-42 scene at 600x300
+     spp=32 b=16 (compaction at bounces 2 and 4): RMSE below 1e-3 against
+     scenes/oracle_shirley_600x300_spp32_b16_f64.npz, segments within
+     0.05% of its count; then bench.py's HQ render, spp=512 b=16: segments
+     within 0.1% of the JAX package's 236,462,441 on the TPU (BENCH_r05),
+     with its wall and the card's name and power limit. Every render of
+     phase 16 runs fused_bounce and compact_blocks and no other kernel.
 Each kernel's bound_ms in the JSON line is the larger of the bytes it must
 move over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
 from this run's inputs (OPS below); for the full-variant sphere loop
@@ -190,10 +211,13 @@ none before phase 15: their counts are set to 0 with the path's own
 before each of the six main-path runs of phases 4-14 in this process (4,
 4b, 7, 11, 13, 14a) and around 14b's ranks' renders, read after it, and
 must stay 0; around phase 15's three renders the BVH4 walk must run and
-the BVH8 walk, the clustered kernel and the raster gather must not.
-Every other kernel's launches sum its one-process paths' runs (4, 7, 11,
-13, 15), as before phase 14; launches_by_path adds 14a's and 14b's (each
-rank's counts, read around its renders, summed).
+the BVH8 walk, the clustered kernel and the raster gather must not;
+around each of phase 16's renders (the seed-7, scene-switch, 16-bounce and
+HQ paths) only fused_bounce and compact_blocks may run. Every other
+kernel's launches sum its one-process paths' runs (4, 7, 11, 13, 15, 16:
+fused_bounce's and compact_blocks' include phase 16's renders);
+launches_by_path adds 14a's and 14b's (each rank's counts, read around
+its renders, summed).
 Then a JSON line of kernel results, the nvidia-smi line, and the final
 `{"ok": true, "device": {...}}` line. Without a CUDA device, or without the
 package beside this script, it fails before printing any result.
@@ -268,6 +292,21 @@ GANESHA_PT_RMSE_SHARE = 2e-2
 GANESHA_PT_BINNED_SHARE = 5e-3
 PT_WALK_BOUNCES = (1, 3)  # bounces whose walk is held to its plain version
 PT_WARM_RENDERS = 3
+# phase 16: a seeded shirley scene other than the manifest's (seed 7's own
+# list, 530 spheres) and the 16-bounce chain of the HQ configuration, each
+# against a float64 render of the JAX package on the CPU
+# (tools/make_shirley_reference.py); the canonical render's budgets for the
+# seed-7 render, and for 16 bounces segments within 0.05%
+SEED = 7
+SEED_ORACLE = os.path.join(ROOT, "scenes",
+                           "oracle_shirley_seed7_600x300_spp32_f64.npz")
+B16, B16_SEGMENT_SLACK = 16, 5e-4
+B16_ORACLE = os.path.join(ROOT, "scenes",
+                          "oracle_shirley_600x300_spp32_b16_f64.npz")
+# bench.py's HQ configuration (spp 512, 16 bounces) and the segments the
+# JAX package traced there on the TPU (BENCH_r05): segments, not a speed
+HQ_SPP, HQ_TPU_SEGMENTS, HQ_SEGMENT_SLACK = 512, 236_462_441, 1e-3
+SWITCH_W, SWITCH_H, SWITCH_SPP = 160, 80, 4  # the scene switch's render
 # The card's peaks for bound_ms (NVIDIA's H100 SXM data sheet): HBM 3.35
 # TB/s and 67 TFLOP/s of float32 outside the tensor cores.
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -2898,6 +2937,233 @@ def bvh4_phases(torch, np, dev, smi, rend):
     return kernel, path_launches
 
 
+def seed_bounce_chain(torch, r, hier):
+    """Phase 16a: the fused bounce at every bounce of pass 0 of Renderer
+    `r` against its plain version, on the kernel's own state of the bounce
+    before, compacted before bounce 3 as the render does, and that
+    compaction against its plain version; each must be equal. Bounce 0
+    runs the listed variant over r's tile lists, the others the full one
+    over the sphere hierarchy `hier`. Returns (live lanes entering each
+    bounce, the state entering bounce 1)."""
+    from pathtracer_tpu_torch.integrator import _default_compact_at
+    from pathtracer_tpu_torch.ops.cuda import compact_kernel as ck
+    from pathtracer_tpu_torch.ops.cuda import fused_bounce_kernel as fbk
+
+    bg_mode, colors = r.background
+    state, off = r.initial_wavefront(0)
+    live, state1 = [], None
+    for b in range(r.max_bounces):
+        if b in _default_compact_at(r.max_bounces):
+            got = ck.compact_blocks(state, off)
+            want = ck.compact_blocks_plain(state, off)
+            torch.cuda.synchronize()
+            exact = (torch.equal(got[0].view(torch.int32),
+                                 want[0].view(torch.int32))
+                     and torch.equal(got[1], want[1])
+                     and torch.equal(got[2], want[2]))
+            phase("shirley_seed_compact", bounce=b,
+                  live=int((state[9] > 0).sum()), bit_identical=exact)
+            require(exact, "seed scene: compact_blocks differs from its "
+                    "plain version")
+            st_c, off_c, n_used = ck.pack_rows(*got)
+            keep = -(-int(n_used) // 8) * 8
+            require(keep > 0, f"seed scene: no live lane before bounce {b}")
+            state, off = st_c[:, :keep].contiguous(), off_c[:keep].contiguous()
+        if b == 1:
+            state1 = state
+        live.append(int((state[9] > 0).sum()))
+        limbs = r.sampler.limbs(2 + 2 * b, 3 + 2 * b)
+        kw = dict(bg_mode=bg_mode, origin_zero=b == 0,
+                  block_lists=(r.lists, r.counts) if b == 0 else None,
+                  sphere_bvh=None if b == 0 else hier)
+        st_k, rad_k = fbk.fused_bounce(
+            r.sph_table, state, r.pack_table, off, limbs, colors,
+            torch.zeros(3, *state.shape[1:], device=state.device), **kw)
+        st_p, rad_p = fbk.fused_bounce_plain(
+            r.sph_table, state, r.pack_table, off, limbs, colors,
+            torch.zeros(3, *state.shape[1:], device=state.device), **kw)
+        torch.cuda.synchronize()
+        flips = int(((st_k[9] > 0) != (st_p[9] > 0)).sum())
+        require(torch.equal(st_k, st_p) and torch.equal(rad_k, rad_p),
+                f"seed scene, bounce {b}: fused_bounce differs from its "
+                f"plain version ({flips} alive flags, state "
+                f"{float((st_k - st_p).abs().max())})")
+        state = st_k
+    return live, state1
+
+
+def seed_render_gates(np, img_t, segments, oracle_path, what, slack):
+    """The image of a shirley render against its float64 oracle: finite, of
+    the oracle's shape, RMSE below RMSE_BUDGET, segments within `slack` of
+    the oracle's. Returns (rmse, the oracle's segments)."""
+    oracle = np.load(oracle_path)
+    img = img_t.cpu().numpy().astype(np.float64)
+    require(img.shape == oracle["img"].shape and bool(np.isfinite(img).all()),
+            f"{what}: image {img.shape}, finite {np.isfinite(img).all()}")
+    rmse = float(np.sqrt(np.mean((img - oracle["img"]) ** 2)))
+    want = int(oracle["segments"])
+    require(rmse < RMSE_BUDGET, f"{what}: RMSE {rmse} >= {RMSE_BUDGET}")
+    require(abs(segments - want) <= slack,
+            f"{what}: segments {segments} vs the oracle's {want}")
+    return rmse, want
+
+
+def seed_phases(torch, np, dev, smi, canonical_wall_s):
+    """Phase 16: (a) shirley_seed, the seed-7 scene of
+    models.shirley.build(seed=7, use_manifest=False): its sphere hierarchy,
+    the fused bounce at every bounce of pass 0 and the compaction against
+    their plain versions (seed_bounce_chain), intersect_clustered against
+    its plain version and intersect_spheres on its bounce-1 rays, and the
+    canonical render of it through make_render_fn against its float64
+    oracle; (b) shirley_scene_switch, one make_render_fn rendering seed 42,
+    seed 7, then seed 42 again, each equal to a fresh render function's;
+    (c) shirley_b16, the seed-42 scene at 16 bounces against its float64
+    oracle, then bench.py's HQ render (spp 512) with its segments beside
+    the TPU's. canonical_wall_s: phase 4's median wall. Returns {render
+    path: launches}: only fused_bounce and compact_blocks may run."""
+    from pathtracer_tpu_torch.integrator import Renderer, make_render_fn
+    from pathtracer_tpu_torch.models import shirley
+    from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
+
+    t_phase = time.perf_counter()
+    path_launches = {}
+
+    def on_path(name, launches):
+        """A shirley render runs the fused bounce and the compaction and no
+        other kernel: the kernels of no path, and those of the PPM and mesh
+        paths, read 0."""
+        require(launches["fused_bounce"] > 0 and launches["compact_blocks"] > 0
+                and all(n == 0 for k, n in launches.items()
+                        if k not in ("fused_bounce", "compact_blocks")),
+                f"{name}: launches {launches}")
+        return launches
+
+    # --- 16a. the seed-7 scene ---------------------------------------------
+    scene, cam, bg = shirley.build(WIDTH / HEIGHT, dev, seed=SEED,
+                                   use_manifest=False)
+    n_sph = int(scene.valid.sum())
+    r = Renderer(scene, cam, bg, WIDTH, HEIGHT, SPP, BOUNCES, dev)
+    t0 = time.perf_counter()
+    hier = r.sphere_hierarchy()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    require(n_sph == int(np.load(SEED_ORACLE)["spheres"]),
+            f"seed {SEED}: {n_sph} spheres, the oracle's "
+            f"{int(np.load(SEED_ORACLE)['spheres'])}")
+    live, state1 = seed_bounce_chain(torch, r, hier)
+    tables = sk.pack_spheres_clustered(scene.center, scene.radius,
+                                       scene.valid)
+    walk = sk.cached_cluster_walk(tables)
+    k = tables[1].shape[1]
+    org = state1[0:3].reshape(3, -1).T.contiguous()
+    d = state1[3:6].reshape(3, -1).T.contiguous()
+    alive = state1[9].reshape(-1) > 0
+    err, cl_ms, cl_plain_ms, _ = compare(
+        torch, "shirley_seed_clustered",
+        lambda: sk.intersect_clustered(tables, org, d, alive),
+        lambda: sk.intersect_clustered_plain(tables, org, d, alive),
+        f"bounce1:{org.shape[0]}_rays", kernel="intersect_clustered_kernel",
+        plain_reps=1, plain_batch=1, plain_prof=1, clusters=k,
+        real_slots=walk.n_real,
+        smem_bytes=sk.clustered_smem_bytes(k, walk.n_real))
+    got = sk.intersect_clustered(tables, org, d, alive)
+    want = sk.intersect_spheres(r.sph_table, org, d, alive)
+    require(torch.equal(got[2][alive], want[2][alive])
+            and torch.equal(got[0][alive], want[0][alive]),
+            "seed scene: intersect_clustered's hits differ from "
+            "intersect_spheres'")
+    phase("shirley_seed", seed=SEED, spheres=n_sph, padded=scene.count,
+          unconditional=hier.n_uncond, groups=hier.n_groups,
+          leaves=hier.nodes.shape[0] - hier.n_groups,
+          build_ms=f"{build_ms:.3f}", list_width=r.lists.shape[1],
+          live_by_bounce=json.dumps(live), fused_bounce_equal=True,
+          clustered_equal=True, clustered_hits_equal_spheres=True)
+
+    render = make_render_fn(cam, bg, WIDTH, HEIGHT, SPP, BOUNCES, dev)
+    t0 = time.perf_counter()
+    render(scene)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (img_t, segments), launches, wall = counted(torch, dev,
+                                                lambda: render(scene))
+    path_launches["shirley_seed7"] = on_path("shirley_seed7", launches)
+    rmse, want_segs = seed_render_gates(np, img_t, segments, SEED_ORACLE,
+                                        f"seed {SEED} render", SEGMENT_SLACK)
+    walls = [wall] + [counted(torch, dev, lambda: render(scene))[2]
+                      for _ in range(4)]
+    wall_s = statistics.median(walls)
+    phase("shirley_seed_render",
+          config=f"{WIDTH}x{HEIGHT},spp={SPP},b={BOUNCES},seed={SEED}",
+          segments=segments, oracle_segments=want_segs, rmse=f"{rmse:.6e}",
+          first_render_s=f"{first_s:.4f}", wall_s=f"{wall_s:.4f}",
+          walls_s=json.dumps([round(w, 4) for w in walls]),
+          canonical_wall_s=f"{canonical_wall_s:.4f}",
+          mrays_per_s=f"{segments / wall_s / 1e6:.3f}",
+          launches=json.dumps({k: n for k, n in launches.items() if n}),
+          gpu=json.dumps(smi))
+
+    # --- 16b. one render function over three scenes ------------------------
+    s42 = shirley.build(SWITCH_W / SWITCH_H, dev)[0]
+    s7 = shirley.build(SWITCH_W / SWITCH_H, dev, seed=SEED,
+                       use_manifest=False)[0]
+    cam_s = shirley.make_camera(SWITCH_W / SWITCH_H)
+    switch = make_render_fn(cam_s, bg, SWITCH_W, SWITCH_H, SWITCH_SPP,
+                            BOUNCES, dev)
+    sums, equal = {}, []
+    for name, sc in (("seed42", s42), (f"seed{SEED}", s7), ("seed42", s42)):
+        (img_s, segs_s), launches, _ = counted(torch, dev,
+                                               lambda: switch(sc))
+        on_path("shirley_scene_switch", launches)
+        sums = {k: sums.get(k, 0) + n for k, n in launches.items()}
+        img_f, segs_f = make_render_fn(cam_s, bg, SWITCH_W, SWITCH_H,
+                                       SWITCH_SPP, BOUNCES, dev)(sc)
+        equal.append((name, segs_s, torch.equal(img_s, img_f)
+                      and segs_s == segs_f))
+    path_launches["shirley_scene_switch"] = sums
+    phase("shirley_scene_switch",
+          config=f"{SWITCH_W}x{SWITCH_H},spp={SWITCH_SPP},b={BOUNCES}",
+          renders=json.dumps(equal),
+          launches=json.dumps({k: n for k, n in sums.items() if n}))
+    require(all(e for _, _, e in equal),
+            f"a scene switch's render differs from a fresh one: {equal}")
+    require(equal[0][1] != equal[1][1],
+            "the two scenes traced the same segments")
+
+    # --- 16c. 16 bounces: the compaction at (2, 4) ---------------------------
+    scene, cam, bg = shirley.build(WIDTH / HEIGHT, dev)
+    render = make_render_fn(cam, bg, WIDTH, HEIGHT, SPP, B16, dev)
+    render(scene)
+    (img_t, segments), launches, wall = counted(torch, dev,
+                                                lambda: render(scene))
+    path_launches["shirley_b16"] = on_path("shirley_b16", launches)
+    want_segs = int(np.load(B16_ORACLE)["segments"])
+    rmse, _ = seed_render_gates(np, img_t, segments, B16_ORACLE,
+                                "16-bounce render",
+                                B16_SEGMENT_SLACK * want_segs)
+    phase("shirley_b16", config=f"{WIDTH}x{HEIGHT},spp={SPP},b={B16}",
+          segments=segments, oracle_segments=want_segs, rmse=f"{rmse:.6e}",
+          wall_s=f"{wall:.4f}", mrays_per_s=f"{segments / wall / 1e6:.3f}",
+          launches=json.dumps({k: n for k, n in launches.items() if n}))
+    hq = make_render_fn(cam, bg, WIDTH, HEIGHT, HQ_SPP, B16, dev)
+    (img_t, segments), launches, first = counted(torch, dev,
+                                                 lambda: hq(scene))
+    path_launches["shirley_hq"] = on_path("shirley_hq", launches)
+    img = img_t.cpu().numpy()
+    require(img.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(img).all()),
+            f"HQ render: image {img.shape}")
+    wall = counted(torch, dev, lambda: hq(scene))[2]
+    phase("shirley_hq", config=f"{WIDTH}x{HEIGHT},spp={HQ_SPP},b={B16}",
+          segments=segments, tpu_segments=HQ_TPU_SEGMENTS,
+          first_render_s=f"{first:.4f}", wall_s=f"{wall:.4f}",
+          mrays_per_s=f"{segments / wall / 1e6:.3f}",
+          launches=json.dumps({k: n for k, n in launches.items() if n}),
+          gpu=json.dumps(smi))
+    require(abs(segments - HQ_TPU_SEGMENTS)
+            <= HQ_SEGMENT_SLACK * HQ_TPU_SEGMENTS,
+            f"HQ segments {segments} vs the TPU's {HQ_TPU_SEGMENTS}")
+    phase("seed", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    return path_launches
+
+
 def entry(name, source, replaces, err, kms, pms, **kw):
     """One kernel of the JSON line; no single PyTorch call computes any of
     the port's kernels, so library_ms is null throughout."""
@@ -3150,7 +3416,7 @@ def main() -> None:
         render(scene)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    wall_s = statistics.median(walls)
+    wall_s = shirley_wall_s = statistics.median(walls)
     phase("render", config=f"{WIDTH}x{HEIGHT},spp={SPP},b={BOUNCES}",
           segments=segments, oracle_segments=ORACLE_SEGMENTS,
           rmse=f"{rmse:.6e}", first_render_s=f"{first_s:.4f}",
@@ -3219,6 +3485,8 @@ def main() -> None:
 
     bvh4_kernel, bvh4_launches = bvh4_phases(torch, np, dev, smi, pt["rend"])
 
+    seed_launches = seed_phases(torch, np, dev, smi, shirley_wall_s)
+
     # bounds of the PT kernels: bounce 1 (full) reads state (10 planes),
     # radiance (3), offsets and the hierarchy, writes state and radiance,
     # and runs the walk's node tests and pairs (cull_work; the brute
@@ -3250,15 +3518,15 @@ def main() -> None:
               shape="shirley bounce 3, 194560 lanes"),
     ]
     # every kernel of a render path runs on the one-process paths of
-    # phases 4, 7, 11 and 13 it is on, and on phase 14's group of one (in
-    # this process) and ranks (each rank's counts, read around its renders,
-    # summed): launches is the sum of its one-process paths' runs, as
-    # before phase 14, each read on its own; launches_by_path holds every
-    # path's count, phase 14's too. The path-traced render's numbers join
-    # the entries of its four kernels
+    # phases 4, 7, 11, 13, 15 and 16 it is on, and on phase 14's group of
+    # one (in this process) and ranks (each rank's counts, read around its
+    # renders, summed): launches is the sum of its one-process paths' runs,
+    # each read on its own; launches_by_path holds every path's count,
+    # phase 14's too. The path-traced render's numbers join the entries of
+    # its four kernels
     paths = {"shirley": launches, "cornell": ppm_launches,
              "ganesha": mesh_launches, "ganesha_pt": pt_launches,
-             **bvh4_launches}
+             **bvh4_launches, **seed_launches}
     multi = {"multi_device": md_launches,
              "multi_device_ranks": md_rank_launches}
     mesh_kernels.append(bvh4_kernel)
@@ -3314,13 +3582,15 @@ def main() -> None:
         raster,
     ]
     # the kernels on no path: their counts as read around each of the six
-    # main-path runs of phases 4-14 in this process and around phase 15's;
-    # the BVH4 walk's as read around those six runs, beside phase 15's
+    # main-path runs of phases 4-14 in this process and around phase 15's
+    # and 16's; the BVH4 walk's as read around those six runs, beside
+    # phase 15's
     require(len(NO_PATH_LAUNCHES) == 6,
             f"no-path counts read around {sorted(NO_PATH_LAUNCHES)}")
     for k in kernels[-2:]:
         by_path = {p: counts[k["name"]] for p, counts in
-                   {**NO_PATH_LAUNCHES, **bvh4_launches}.items()}
+                   {**NO_PATH_LAUNCHES, **bvh4_launches,
+                    **seed_launches}.items()}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path)
     bvh4_kernel["launches_by_path"].update(
         {p: counts["bvh4_walk"] for p, counts in NO_PATH_LAUNCHES.items()})

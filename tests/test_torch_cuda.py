@@ -58,6 +58,13 @@ sums the chunk gather's photons in another order (rtol 1e-4, atol 1e-6).
 The renderers over bands of tile rows (the sharded path tracer's sp
 split) must give the whole image's sums bit for bit on the card too.
 
+The seeded shirley scenes (seeds 7 and 99999, their own lists) bring other
+sphere counts and layouts: the fused bounce must equal its plain version
+on them too, one render function switching between seed 42 and seed 7
+must give each scene a fresh render function's image, and a 16-bounce
+render (two compactions) is held to its CPU render by the small render's
+bounds.
+
 The triangle kernel skips pad columns and pre-rejects pairs: it must equal
 its plain version on real columns scattered among pads (T = 45 and 1024),
 on each case its header names (tests/test_torch_tri_pads.py) and on the
@@ -110,7 +117,19 @@ def _walk_skips(r, state):
 def test_fused_bounce_kernel_matches_plain(dev):
     """Every bounce of a 256x128 shirley pass: bounce 0 listed, bounces 1-7
     through the walk of the sphere hierarchy, which skips leaves."""
-    scene, cam, bg = shirley.build(2.0, dev)
+    _fused_chain_matches_plain(dev, *shirley.build(2.0, dev))
+
+
+@pytest.mark.parametrize("seed", [7, 99999])
+def test_fused_bounce_kernel_matches_plain_on_seeded_scenes(dev, seed):
+    """The same on the sphere lists of other seeds (use_manifest=False):
+    another sphere count and layout, so other tile list widths, another
+    hierarchy and other grown bounds for the walk's cull."""
+    _fused_chain_matches_plain(dev, *shirley.build(2.0, dev, seed=seed,
+                                                   use_manifest=False))
+
+
+def _fused_chain_matches_plain(dev, scene, cam, bg):
     r = Renderer(scene, cam, bg, 256, 128, 1, 8, dev)
     state, off = r.initial_wavefront(0)
     rad = torch.zeros(3, state.shape[1], 128, device=dev)
@@ -234,6 +253,38 @@ def test_render_fn_builds_the_sphere_hierarchy_once_per_scene(dev,
     assert len(built) == 1 and torch.equal(first, again)
     render(shirley.build(2.0, dev)[0])
     assert len(built) == 2
+
+
+def test_render_fn_switches_seeded_scenes(dev):
+    """One make_render_fn renders seed 42, seed 7 (its own list) and seed 42
+    again: each image and segment count equals a fresh render function's,
+    whose hierarchy is built for that scene alone."""
+    s42 = shirley.build(2.0, dev)[0]
+    s7, cam, bg = shirley.build(2.0, dev, seed=7, use_manifest=False)
+    render = make_render_fn(cam, bg, 64, 32, 2, 8, dev)
+    segments = []
+    for scene in (s42, s7, s42):
+        img, segs = render(scene)
+        fresh, fresh_segs = make_render_fn(cam, bg, 64, 32, 2, 8, dev)(scene)
+        assert segs == fresh_segs and torch.equal(img, fresh)
+        segments.append(segs)
+    assert segments[0] == segments[2] != segments[1]
+
+
+def test_card_render_16_bounces_equals_cpu_render(dev):
+    """A 64x32 spp=2 render at 16 bounces (compaction at bounces 2 and 4, a
+    two-link chain back to the pixels) through the kernels on the card and
+    through their plain versions on the CPU: the bounds of
+    test_card_render_equals_cpu_render."""
+    scene, cam, bg = shirley.build(2.0, dev)
+    ck.compact_blocks.launches = 0
+    img_k, segs_k = make_render_fn(cam, bg, 64, 32, 2, 16, dev)(scene)
+    assert ck.compact_blocks.launches == 2 * 2
+    cpu = torch.device("cpu")
+    scene_c, cam_c, bg_c = shirley.build(2.0, cpu)
+    img_c, segs_c = make_render_fn(cam_c, bg_c, 64, 32, 2, 16, cpu)(scene_c)
+    assert segs_k == segs_c
+    assert (img_k.cpu() - img_c).abs().max() <= 1e-4
 
 
 def test_small_render_on_card_matches_golden(dev):
