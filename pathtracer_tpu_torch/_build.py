@@ -25,6 +25,8 @@ import os
 import shutil
 import subprocess
 
+from .utils import tracing
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 _OUT = os.path.join(_DIR, "_build")
@@ -91,9 +93,16 @@ def library_path() -> str:
 
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
-    global _lib, build_log
+    global _lib
     if _lib is not None:
         return _lib
+    with tracing.span("build.kernels"):
+        _lib = _build_and_load()
+    return _lib
+
+
+def _build_and_load() -> ctypes.CDLL:
+    global build_log
     so = library_path()
     if not os.path.exists(so):
         os.makedirs(_OUT, exist_ok=True)
@@ -128,7 +137,6 @@ def load() -> ctypes.CDLL:
     lib.pt_error_string.restype = ctypes.c_char_p
     lib.pt_bvh4_cache_rows.argtypes = []
     lib.pt_bvh4_cache_rows.restype = ctypes.c_int
-    _lib = lib
     return lib
 
 

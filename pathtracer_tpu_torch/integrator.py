@@ -64,6 +64,7 @@ from .ops.spheres import stable_t
 from .ops.triangles import mt_single
 from .scene import (TRI_A, TRI_E1, TRI_E2, TRI_MAT, TRI_TEX, Scene,
                     eval_texture)
+from .utils import tracing
 
 __all__ = ["make_intersector", "TILE", "tile_sphere_lists", "initial_state",
            "trace_wavefront", "Renderer", "trace", "MeshRenderer",
@@ -124,10 +125,13 @@ def make_intersector(scene: Scene, mesh=None, mesh_intersect=None):
             t_cur = torch.where(hit, torch.where(use_tri, t_t, t_s)
                                 if has_tris else t_s, BIG)
             if mesh_intersect is not None:
-                t_m, u_m, v_m, idx_m, hit_m = mesh_intersect(org, d, alive)
+                with tracing.span("pt.tile"):
+                    t_m, u_m, v_m, idx_m, hit_m = mesh_intersect(org, d,
+                                                                 alive)
             else:
-                t_m, u_m, v_m, idx_m, hit_m = mesh.intersect(org, d, t_cur,
-                                                             alive)
+                with tracing.span("pt.walk"):
+                    t_m, u_m, v_m, idx_m, hit_m = mesh.intersect(
+                        org, d, t_cur, alive)
             use_mesh = hit_m & (t_m < t_cur)
             use_tri = use_tri & ~use_mesh
             hit = hit | hit_m
@@ -300,27 +304,33 @@ def trace_wavefront(sph_table, pack_table, state, off, sampler: Sampler,
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     chain = []
     for bounce in range(max_bounces):
-        if bounce in compact_at:
-            flush += _to_orig(rad, chain)
-            alive_pre = state[9] > 0.0
-            st_c, off_c, k = ck.compact_blocks(state, off)
-            state, off, n_used = ck.pack_rows(st_c, off_c, k)
-            chain.append((alive_pre.reshape(-1), ck.dest_map(alive_pre, k)))
-            keep = -(-int(n_used) // 8) * 8  # the one host sync
-            if keep == 0:
-                return flush.reshape(3, rows, LANES), segments
-            state = state[:, :keep].contiguous()
-            off = off[:keep].contiguous()
-            rad = torch.zeros(3, keep, LANES, dtype=torch.float32,
-                              device=dev)
-        segments += (state[9] > 0.0).sum()
-        state, rad = bounce_fn(
-            sph_table, state, pack_table, off,
-            sampler.limbs(2 + 2 * bounce, 3 + 2 * bounce), bg, rad,
-            bg_mode=bg_mode, origin_zero=origin_zero and bounce == 0,
-            block_lists=block_lists0 if bounce == 0 else None,
-            sphere_bvh=sphere_bvh)
-    flush += _to_orig(rad, chain)
+        with tracing.span("pt.bounce"):
+            if bounce in compact_at:
+                with tracing.span("pt.compact"):
+                    flush += _to_orig(rad, chain)
+                    alive_pre = state[9] > 0.0
+                    st_c, off_c, k = ck.compact_blocks(state, off)
+                    state, off, n_used = ck.pack_rows(st_c, off_c, k)
+                    chain.append((alive_pre.reshape(-1),
+                                  ck.dest_map(alive_pre, k)))
+                    with tracing.span("pt.sync"):
+                        keep = -(-int(n_used) // 8) * 8
+                    if keep == 0:
+                        return flush.reshape(3, rows, LANES), segments
+                    state = state[:, :keep].contiguous()
+                    off = off[:keep].contiguous()
+                    rad = torch.zeros(3, keep, LANES, dtype=torch.float32,
+                                      device=dev)
+            tracing.count("pt.lanes", state.shape[1] * LANES)
+            segments += (state[9] > 0.0).sum()
+            state, rad = bounce_fn(
+                sph_table, state, pack_table, off,
+                sampler.limbs(2 + 2 * bounce, 3 + 2 * bounce), bg, rad,
+                bg_mode=bg_mode, origin_zero=origin_zero and bounce == 0,
+                block_lists=block_lists0 if bounce == 0 else None,
+                sphere_bvh=sphere_bvh)
+    with tracing.span("pt.compact"):
+        flush += _to_orig(rad, chain)
     return flush.reshape(3, rows, LANES), segments
 
 
@@ -399,7 +409,8 @@ class Renderer(torch.nn.Module):
         (host work), built at the first call on the card and kept. None on
         the CPU, where the plain versions do not read it."""
         if self._sphere_bvh is None and self.sph_table.is_cuda:
-            self._sphere_bvh = build_sphere_bvh(self.sph_table)
+            with tracing.span("pt.sphere_bvh"):
+                self._sphere_bvh = build_sphere_bvh(self.sph_table)
         return self._sphere_bvh
 
     def initial_wavefront(self, pass_idx: int):
@@ -415,7 +426,8 @@ class Renderer(torch.nn.Module):
     def trace_pass(self, pass_idx: int):
         """One sample per pixel: (radiance planes (3, rows, 128) in tile-major
         order, segments tensor)."""
-        state, off = self.initial_wavefront(pass_idx)
+        with tracing.span("pt.primary"):
+            state, off = self.initial_wavefront(pass_idx)
         return trace_wavefront(self.sph_table, self.pack_table, state, off,
                                self.sampler, self.max_bounces,
                                self.background, origin_zero=True,
@@ -458,9 +470,13 @@ class Renderer(torch.nn.Module):
     @torch.no_grad()
     def forward(self, progress=None):
         sums, segments = self.band_sums(range(self.spp), progress)
-        img = film.finalize(film.apply_filter(self.untile(sums), self.kern2d),
-                            self.spp)
-        return img, int(segments)
+        with tracing.span("pt.film"):
+            img = film.finalize(film.apply_filter(self.untile(sums),
+                                                  self.kern2d), self.spp)
+        with tracing.span("pt.sync"):
+            segments = int(segments)
+        tracing.count("pt.live_lanes", segments)
+        return img, segments
 
 
 def trace(scene: Scene, sampler: Sampler, org, d, offset, max_bounces: int,
@@ -485,27 +501,31 @@ def trace(scene: Scene, sampler: Sampler, org, d, offset, max_bounces: int,
     rad = torch.zeros_like(org)
     segments = torch.zeros((), dtype=torch.int64, device=org.device)
     for bounce in range(max_bounces):
-        segments += alive.sum()
-        h = (hit_setup0 if bounce == 0 else hit_setup)(org, d, alive)
-        hit = h["hit"] & alive
-        miss = alive & ~hit
-        rad = rad + vec.where3(miss, attn * sky(background, d),
-                               torch.zeros_like(rad))
+        with tracing.span("pt.bounce"):
+            tracing.count("pt.lanes", org.shape[0])
+            segments += alive.sum()
+            with tracing.span("pt.intersect"):
+                h = (hit_setup0 if bounce == 0 else hit_setup)(org, d, alive)
+            with tracing.span("pt.scatter"):
+                hit = h["hit"] & alive
+                miss = alive & ~hit
+                rad = rad + vec.where3(miss, attn * sky(background, d),
+                                       torch.zeros_like(rad))
 
-        q = shading.shader_quat(h["normal"])
-        omega_i = quat_ops.rotate(q, -d)
-        u = sampler.get(offset, 2 + 2 * bounce)
-        v = sampler.get(offset, 3 + 2 * bounce)
-        wo, attn_mult, ok = shading.scatter(
-            h["mat_kind"], h["albedo"], h["ior"], h["ior_inv"], omega_i,
-            h["hit_front"], u, v)
-        dir_world = quat_ops.rotate_inv(q, wo)
-        new_org = shading.world_ray(h["point"], dir_world)
+                q = shading.shader_quat(h["normal"])
+                omega_i = quat_ops.rotate(q, -d)
+                u = sampler.get(offset, 2 + 2 * bounce)
+                v = sampler.get(offset, 3 + 2 * bounce)
+                wo, attn_mult, ok = shading.scatter(
+                    h["mat_kind"], h["albedo"], h["ior"], h["ior_inv"],
+                    omega_i, h["hit_front"], u, v)
+                dir_world = quat_ops.rotate_inv(q, wo)
+                new_org = shading.world_ray(h["point"], dir_world)
 
-        alive = hit & ok
-        org = vec.where3(alive, new_org, org)
-        d = vec.where3(alive, dir_world, d)
-        attn = vec.where3(alive, attn * attn_mult, attn)
+                alive = hit & ok
+                org = vec.where3(alive, new_org, org)
+                d = vec.where3(alive, dir_world, d)
+                attn = vec.where3(alive, attn * attn_mult, attn)
     return rad, segments
 
 
@@ -586,7 +606,8 @@ class MeshRenderer(torch.nn.Module):
     def trace_pass(self, pass_idx: int):
         """One sample per pixel: (radiance (lanes, 3) in raster order,
         segments tensor)."""
-        offset, org, d, alive = self.primary(pass_idx)
+        with tracing.span("pt.primary"):
+            offset, org, d, alive = self.primary(pass_idx)
         return trace(self.scene, self.sampler, org, d, offset,
                      self.max_bounces, self.background, alive, self.mesh,
                      self.mesh_intersect0)
@@ -622,9 +643,13 @@ class MeshRenderer(torch.nn.Module):
     @torch.no_grad()
     def forward(self, progress=None):
         sums, segments = self.band_sums(range(self.spp), progress)
-        img = film.finalize(film.apply_filter(self.image(sums), self.kern2d),
-                            self.spp)
-        return img, int(segments)
+        with tracing.span("pt.film"):
+            img = film.finalize(film.apply_filter(self.image(sums),
+                                                  self.kern2d), self.spp)
+        with tracing.span("pt.sync"):
+            segments = int(segments)
+        tracing.count("pt.live_lanes", segments)
+        return img, segments
 
 
 def make_render_fn(camera: Camera, background, width: int, height: int,
@@ -648,22 +673,26 @@ def make_render_fn(camera: Camera, background, width: int, height: int,
         kept = [None, None]  # the scene last rendered and its renderer
 
         def render_mesh(scene: Scene, progress=None):
-            if kept[0] is not scene:
-                kept[:] = scene, MeshRenderer(
-                    scene, camera, background, width, height, spp,
-                    max_bounces, device, mesh)
-            return kept[1](progress)
+            with tracing.span(tracing.ROOT):
+                if kept[0] is not scene:
+                    with tracing.span("pt.renderer_init"):
+                        kept[:] = scene, MeshRenderer(
+                            scene, camera, background, width, height, spp,
+                            max_bounces, device, mesh)
+                return kept[1](progress)
 
         return render_mesh
 
     last = [None, None]  # the scene last rendered and its sphere hierarchy
 
     def render(scene: Scene, progress=None):
-        r = Renderer(scene, camera, background, width, height, spp,
-                     max_bounces, device, fuse_bounce,
-                     sphere_bvh=last[1] if last[0] is scene else None)
-        out = r(progress)
-        last[:] = scene, r.sphere_hierarchy()
+        with tracing.span(tracing.ROOT):
+            with tracing.span("pt.renderer_init"):
+                r = Renderer(scene, camera, background, width, height, spp,
+                             max_bounces, device, fuse_bounce,
+                             sphere_bvh=last[1] if last[0] is scene else None)
+            out = r(progress)
+            last[:] = scene, r.sphere_hierarchy()
         return out
 
     return render

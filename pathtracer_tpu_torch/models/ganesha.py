@@ -18,6 +18,7 @@ from ..io import ply
 from ..ops.bvh import MeshBVH
 from ..ppm import Light
 from ..scene import LAMBERTIAN, TEX_CHECKER, SceneBuilder
+from ..utils import tracing
 from . import shirley
 
 
@@ -102,5 +103,6 @@ def build_pt(path: str, aspect: float, device):
     sky instead of the spot lights. Returns (scene on `device`, camera,
     background (shirley.BACKGROUND), mesh); render it with
     integrator.make_render_fn(..., mesh=mesh)."""
-    scene, cam, _lights, mesh = build(path, aspect, device)
+    with tracing.span("build.scene"):
+        scene, cam, _lights, mesh = build(path, aspect, device)
     return scene, cam, shirley.BACKGROUND, mesh

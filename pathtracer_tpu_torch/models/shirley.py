@@ -30,6 +30,7 @@ import torch
 from ..camera import Camera
 from ..ops import vec
 from ..scene import DIELECTRIC, LAMBERTIAN, METAL, Scene, SceneBuilder, TEX_CHECKER
+from ..utils import tracing
 from ..utils.ocaml_random import OCaml5Random
 
 MANIFEST = os.path.normpath(os.path.join(
@@ -115,20 +116,23 @@ def build(aspect: float, device, seed: int = 42,
           use_manifest: bool = True) -> tuple[Scene, Camera, tuple]:
     """Returns (scene in camera space on `device`, camera, background) of
     sphere_list(seed, use_manifest)."""
-    cam = make_camera(aspect)
-    b = SceneBuilder()
-    for s in sphere_list(seed, use_manifest):
-        kind = s["kind"]
-        if kind == "checker_lambert":
-            b.add_sphere(s["center"], s["radius"], LAMBERTIAN,
-                         color_a=s["even"], color_b=s["odd"],
-                         tex_kind=TEX_CHECKER, checker_wh=s["checker"])
-        elif kind == "lambert":
-            b.add_sphere(s["center"], s["radius"], LAMBERTIAN, color_a=s["color"])
-        elif kind == "metal":
-            b.add_sphere(s["center"], s["radius"], METAL, color_a=s["color"])
-        elif kind == "glass":
-            b.add_sphere(s["center"], s["radius"], DIELECTRIC, ior=1.5)
-        else:
-            raise ValueError(kind)
-    return b.build(camera=cam, device=device), cam, BACKGROUND
+    with tracing.span("build.scene"):
+        cam = make_camera(aspect)
+        b = SceneBuilder()
+        for s in sphere_list(seed, use_manifest):
+            kind = s["kind"]
+            if kind == "checker_lambert":
+                b.add_sphere(s["center"], s["radius"], LAMBERTIAN,
+                             color_a=s["even"], color_b=s["odd"],
+                             tex_kind=TEX_CHECKER, checker_wh=s["checker"])
+            elif kind == "lambert":
+                b.add_sphere(s["center"], s["radius"], LAMBERTIAN,
+                             color_a=s["color"])
+            elif kind == "metal":
+                b.add_sphere(s["center"], s["radius"], METAL,
+                             color_a=s["color"])
+            elif kind == "glass":
+                b.add_sphere(s["center"], s["radius"], DIELECTRIC, ior=1.5)
+            else:
+                raise ValueError(kind)
+        return b.build(camera=cam, device=device), cam, BACKGROUND
