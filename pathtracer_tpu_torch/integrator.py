@@ -47,7 +47,6 @@ import torch
 
 from . import film
 from .camera import Camera
-from .models.shirley import sky
 from .ops import quat as quat_ops
 from .ops import shading, vec
 from .ops.cuda import compact_kernel as ck
@@ -480,22 +479,26 @@ class Renderer(torch.nn.Module):
 
 
 def trace(scene: Scene, sampler: Sampler, org, d, offset, max_bounces: int,
-          background, alive0, mesh=None, mesh_intersect0=None):
+          sky_colors, alive0, mesh=None, mesh_intersect0=None):
     """Trace a wavefront of rays through a scene with an optional triangle
     mesh to completion: the JAX trace's composite tier (make_intersector,
     shading.scatter) over (N, 3) rays, N a multiple of 1024.
 
-    org, d (N, 3) f32; offset (N,) sample offsets; background the
-    (bg_mode, colors) tuple (models.shirley.sky evaluates it on a miss);
-    alive0 (N,) bool; mesh an ops.bvh.MeshBVH; mesh_intersect0(org, d,
-    alive) -> (t, u, v, idx, hit) replaces the mesh walk at bounce 0 (the
-    tile-culled kernel of origin-zero primaries). Bounce b draws its two
-    samples at dimensions 2 + 2b and 3 + 2b. Returns (radiance (N, 3),
+    org, d (N, 3) f32; offset (N,) sample offsets; sky_colors the two
+    colours of a background of mode 1 as a (2, 3) f32 tensor on the rays'
+    device (MeshRenderer's buffer), which a miss sees as models.shirley.sky
+    computes it, without sky()'s upload of the colours at every bounce (a
+    CUDA graph cannot capture an upload); alive0 (N,) bool; mesh an
+    ops.bvh.MeshBVH; mesh_intersect0(org, d, alive) -> (t, u, v, idx, hit)
+    replaces the mesh walk at bounce 0 (the tile-culled kernel of
+    origin-zero primaries). Bounce b draws its two samples at dimensions
+    2 + 2b and 3 + 2b. Returns (radiance (N, 3),
     segments: the live lanes summed over the bounces, a 0-dim int64
     tensor on the device)."""
     hit_setup = make_intersector(scene, mesh)
     hit_setup0 = (hit_setup if mesh_intersect0 is None
                   else make_intersector(scene, mesh, mesh_intersect0))
+    sky_lo, sky_hi = (c.expand_as(org) for c in sky_colors)
     alive = alive0
     attn = torch.ones_like(org)
     rad = torch.zeros_like(org)
@@ -509,7 +512,8 @@ def trace(scene: Scene, sampler: Sampler, org, d, offset, max_bounces: int,
             with tracing.span("pt.scatter"):
                 hit = h["hit"] & alive
                 miss = alive & ~hit
-                rad = rad + vec.where3(miss, attn * sky(background, d),
+                sky_d = vec.lerp(0.5 * (d[:, 1] + 1.0), sky_lo, sky_hi)
+                rad = rad + vec.where3(miss, attn * sky_d,
                                        torch.zeros_like(rad))
 
                 q = shading.shader_quat(h["normal"])
@@ -548,7 +552,13 @@ class MeshRenderer(torch.nn.Module):
     (flip_y=True), back-face culled when the mesh is watertight, and the
     band's maps of it (band_tile_maps); bounces >= 1 walk the mesh's BVH8
     table. band_sums and band_image give the band's raw sums before any
-    film step (the sharded render, parallel/mesh.py)."""
+    film step (the sharded render, parallel/mesh.py).
+
+    On a CUDA device band_sums runs each pass as a CUDA graph
+    (mesh_graph.PassGraph, loaded there and nowhere else): the first pass
+    eagerly, as the warm-up before the capture, every later one as a
+    replay of the captured pass, to the same sums bit for bit. On the CPU,
+    and under another graph's capture, the passes run eagerly."""
 
     def __init__(self, scene: Scene, camera: Camera, background, width: int,
                  height: int, spp: int, max_bounces: int, device, mesh,
@@ -559,6 +569,9 @@ class MeshRenderer(torch.nn.Module):
         self.width, self.height = width, height
         self.spp, self.max_bounces = spp, max_bounces
         self.sampler = Sampler(2 + 2 * max_bounces)
+        mode, sky_colors = background
+        if mode != 1:
+            raise ValueError(f"MeshRenderer: no sky of background mode {mode}")
         self.tile_row0 = tile_row0
         self.band = (-(-height // TILE) - tile_row0 if band_tile_rows is None
                      else band_tile_rows)
@@ -583,10 +596,13 @@ class MeshRenderer(torch.nn.Module):
             buf(name, x)
         buf("kern2d", film.binomial_kernel_2d(order=5, pixel_radius=1)
             .astype(np.float32))
+        buf("sky_colors", np.asarray(sky_colors, np.float32))
+        self._graph = None  # the PassGraph, made at the first pass on a card
 
-    def primary(self, pass_idx: int):
+    def primary(self, pass_idx):
         """Bounce-0 rays of one pass: (offset, org, d, alive), offset =
-        y*W + x + pass*spp."""
+        y*W + x + pass*spp. pass_idx is an int or a 0-dim int64 tensor on
+        the renderer's device (a CUDA graph's input), to the same offsets."""
         offset = (self.lane + pass_idx * self.spp) & M32
         dx = self.sampler.get(offset, 0)
         dy = self.sampler.get(offset, 1)
@@ -603,13 +619,13 @@ class MeshRenderer(torch.nn.Module):
                                    self.tile_src), d, alive, self.width,
                                   self.rows)
 
-    def trace_pass(self, pass_idx: int):
+    def trace_pass(self, pass_idx):
         """One sample per pixel: (radiance (lanes, 3) in raster order,
-        segments tensor)."""
+        segments tensor). pass_idx as primary's."""
         with tracing.span("pt.primary"):
             offset, org, d, alive = self.primary(pass_idx)
         return trace(self.scene, self.sampler, org, d, offset,
-                     self.max_bounces, self.background, alive, self.mesh,
+                     self.max_bounces, self.sky_colors, alive, self.mesh,
                      self.mesh_intersect0)
 
     @torch.no_grad()
@@ -618,6 +634,11 @@ class MeshRenderer(torch.nn.Module):
         order, (lanes, 3) in raster order, and the segments traced (a 0-dim
         int64 tensor). progress, if given, is called with the band's pixel
         count after each pass."""
+        if self.lane.is_cuda and not torch.cuda.is_current_stream_capturing():
+            if self._graph is None:
+                from .mesh_graph import PassGraph
+                self._graph = PassGraph(self)
+            return self._graph.band_sums(self, pass_ids, progress)
         sums = torch.zeros(self.lane.shape[0], 3, dtype=torch.float32,
                            device=self.lane.device)
         segments = torch.zeros((), dtype=torch.int64,
@@ -626,6 +647,7 @@ class MeshRenderer(torch.nn.Module):
             rad, segs = self.trace_pass(p)
             sums += rad
             segments += segs
+            tracing.count("pt.passes", 1)
             if progress is not None:
                 progress(self.band_pixels)
         return sums, segments

@@ -3,7 +3,9 @@ synthetic store: each reads the window's untraced images (from image
 warmup_images + trace_images + gap_images on), build.first_render_s the
 first image, build.scene_span_s the set-up's build.scene spans, and each
 gives None with no record and without a card (on
-the CPU the kernels' plain versions run inside the PT driver's spans)."""
+the CPU the kernels' plain versions run inside the PT driver's spans).
+pt_driver.graph_pass_pct also gives None where no pass is counted (the
+sphere path)."""
 
 import sys
 from types import SimpleNamespace
@@ -14,9 +16,10 @@ from pathtracer_tpu_torch.utils import tracing
 from port_bench import spans, spec
 
 TRAFFIC = {"warmup_images": 2, "trace_images": 3, "gap_images": 1}
-NAMES = ("pt_driver.host_ms_per_image", "pt_driver.sync_ms_per_image",
-         "pt_driver.rebuild_ms_per_image", "pt_driver.live_lane_pct",
-         "build.first_render_s", "build.scene_span_s")
+PER_IMAGE = ("pt_driver.host_ms_per_image", "pt_driver.sync_ms_per_image",
+             "pt_driver.rebuild_ms_per_image", "pt_driver.live_lane_pct",
+             "pt_driver.graph_pass_pct")
+NAMES = PER_IMAGE + ("build.first_render_s", "build.scene_span_s")
 
 
 class FakeClock:
@@ -37,9 +40,14 @@ def clock(monkeypatch):
     tracing.reset()
 
 
-def _image(clock, ms, sync_ms, init_ms, bvh_ms, lanes, live):
+def _image(clock, ms, sync_ms, init_ms, bvh_ms, lanes, live, passes=0,
+           graphed=0):
     """One image record whose spans last the given ms (1 ms = 1e6 ns)."""
     with tracing.span(tracing.ROOT):
+        if passes:
+            tracing.count("pt.passes", passes)
+        if graphed:
+            tracing.count("pt.graph_passes", graphed)
         with tracing.span("pt.renderer_init"):
             clock.t += int(init_ms * 1e6)
         with tracing.span("pt.sphere_bvh"):
@@ -94,10 +102,27 @@ def test_no_record_reads_none(clock, name):
     assert _read(name) is None
 
 
-@pytest.mark.parametrize("name", NAMES[:4])
+def test_graph_pass_share_reads_the_untraced_images(clock):
+    # the first image captures (one eager pass), the traced ones replay
+    _image(clock, 900, 1, 0, 0, 10, 10, passes=8, graphed=7)
+    for _ in range(5):
+        _image(clock, 100, 1, 0, 0, 10, 10, passes=8, graphed=8)
+    _image(clock, 100, 1, 0, 0, 10, 10, passes=8, graphed=8)
+    _image(clock, 100, 1, 0, 0, 10, 10, passes=8, graphed=6)
+    assert _read("pt_driver.graph_pass_pct") == pytest.approx(87.5)
+
+
+def test_no_pass_counted_reads_no_graph_share(clock):
+    for _ in range(8):  # the sphere path counts no pt.passes
+        _image(clock, 100, 1, 0, 0, 10, 10)
+    assert _read("pt_driver.live_lane_pct") == pytest.approx(100.0)
+    assert _read("pt_driver.graph_pass_pct") is None
+
+
+@pytest.mark.parametrize("name", PER_IMAGE)
 def test_no_untraced_image_reads_none(clock, name):
     for _ in range(6):  # warm-up and traced images only
-        _image(clock, 100, 1, 1, 0, 10, 10)
+        _image(clock, 100, 1, 1, 0, 10, 10, passes=2, graphed=2)
     assert _read(name) is None
     assert _read("build.first_render_s") == pytest.approx(0.1)
 

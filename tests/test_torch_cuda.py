@@ -58,6 +58,12 @@ sums the chunk gather's photons in another order (rtol 1e-4, atol 1e-6).
 The renderers over bands of tile rows (the sharded path tracer's sp
 split) must give the whole image's sums bit for bit on the card too.
 
+The mesh renderer replays each pass as a CUDA graph on the card: its
+renders must equal the eager passes of the same scene bit for bit, over
+two mesh turns and a second scene object (a new capture), with the eager
+launch counts, progress calls and pt.lanes, and no image may change under
+a later replay.
+
 The seeded shirley scenes (seeds 7 and 99999, their own lists) bring other
 sphere counts and layouts: the fused bounce must equal its plain version
 on them too, one render function switching between seed 42 and seed 7
@@ -859,14 +865,22 @@ def test_intersect_tile_tris_kernel_matches_plain_on_a_flip_y_table(dev):
     assert torch.equal(hit, walk[4])
 
 
-def _tiny_ganesha_pt(dev, tmp_path):
+def _tiny_ganesha_pt(dev, tmp_path, yaw_seed=None):
     """The tiny ganesha (the 168-triangle uv-sphere over the floor, under
-    the sky) of models.ganesha.build_pt on `dev`."""
+    the sky) of models.ganesha.build_pt on `dev`; yaw_seed, if given,
+    turns the sphere about its vertical axis by an angle drawn from it."""
     from pathtracer_tpu_torch.io import ply
     from pathtracer_tpu_torch.models import ganesha
 
     verts, faces = _uv_sphere()
-    path = os.path.join(str(tmp_path), "tiny_ganesha.ply")
+    name = "tiny_ganesha.ply"
+    if yaw_seed is not None:
+        a = np.random.default_rng(yaw_seed).uniform(0.0, 2.0 * np.pi)
+        x, z = verts[:, 0] - 328.0, verts[:, 2] - 150.0
+        verts = np.stack([328.0 + np.cos(a) * x - np.sin(a) * z, verts[:, 1],
+                          150.0 + np.sin(a) * x + np.cos(a) * z], -1)
+        name = f"tiny_ganesha_{yaw_seed}.ply"
+    path = os.path.join(str(tmp_path), name)
     ply.write_mesh(path, verts, faces)
     return ganesha.build_pt(path, 1.0, dev)
 
@@ -927,6 +941,77 @@ def test_ganesha_pt_card_render_matches_cpu(dev, tmp_path):
     assert abs(segs - want_segs) <= 0.005 * want_segs
     assert np.isfinite(img).all()
     assert float(np.sqrt(np.mean((img - want) ** 2))) <= 1e-3
+
+
+@pytest.mark.parametrize("seed", [1, 2 ** 31 + 7])
+def test_mesh_graph_replay_equals_the_eager_render(dev, tmp_path, seed):
+    """make_render_fn(..., mesh=) at 64x64, spp 4, 8 bounces over the tiny
+    ganesha turned by the seed renders scene A, A again, then a second
+    scene object B (a new MeshRenderer: a new capture). Each render equals
+    the eager passes of a renderer of the same scene bit for bit (image
+    and segments), calls progress spp times, counts the eager passes'
+    launches of the four kernels and pt.lanes, and replays every pass but
+    a fresh renderer's first (the warm-up before the capture):
+    pt.graph_passes spp - 1, then spp. No image, and no band_sums result,
+    changes under a later replay."""
+    from pathtracer_tpu_torch import film
+    from pathtracer_tpu_torch.integrator import MeshRenderer
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+    from pathtracer_tpu_torch.utils import tracing
+
+    size, spp, bounces = 64, 4, 8
+    counters = (sk.intersect_spheres, tk.intersect_tris, bw.bvh8_walk,
+                ttk.intersect_tile_tris)
+    scene_a, cam, bg, mesh = _tiny_ganesha_pt(dev, tmp_path, seed)
+    scene_b = _tiny_ganesha_pt(dev, tmp_path, seed)[0]
+
+    def eager(scene):
+        r = MeshRenderer(scene, cam, bg, size, size, spp, bounces, dev, mesh)
+        for fn in counters:
+            fn.launches = 0
+        sums = torch.zeros(r.lane.shape[0], 3, device=dev)
+        segs = torch.zeros((), dtype=torch.int64, device=dev)
+        for p in range(spp):
+            rad, s = r.trace_pass(p)
+            sums += rad
+            segs += s
+        img = film.finalize(film.apply_filter(r.image(sums), r.kern2d), spp)
+        return (img, int(segs), [fn.launches for fn in counters],
+                r.lane.shape[0])
+
+    render = make_render_fn(cam, bg, size, size, spp, bounces, dev,
+                            mesh=mesh)
+    kept = []
+    tracing.reset()
+    try:
+        for scene, graphed in ((scene_a, spp - 1), (scene_a, spp),
+                               (scene_b, spp - 1)):
+            want, want_segs, want_launches, lanes = eager(scene)
+            for fn in counters:
+                fn.launches = 0
+            calls = []
+            img, segs = render(scene, calls.append)
+            launches = [fn.launches for fn in counters]
+            counts = tracing.images()[-1].counts
+            assert torch.equal(img, want) and segs == want_segs > size * size
+            assert calls == [size * size] * spp
+            assert launches == want_launches == [spp * bounces,
+                                                 spp * bounces,
+                                                 spp * (bounces - 1), spp]
+            assert counts["pt.lanes"] == spp * bounces * lanes
+            assert counts["pt.live_lanes"] == segs
+            assert counts["pt.passes"] == spp
+            assert counts["pt.graph_passes"] == graphed
+            kept.append((img, img.clone()))
+    finally:
+        tracing.reset()
+    assert all(torch.equal(img, copy) for img, copy in kept)
+    r = MeshRenderer(scene_a, cam, bg, size, size, spp, bounces, dev, mesh)
+    first = r.band_sums(range(2))
+    copies = [x.clone() for x in first]
+    r.band_sums(range(2, 4))
+    assert all(torch.equal(x, c) for x, c in zip(first, copies))
 
 
 def _bands_stitched(make, height, sp):
