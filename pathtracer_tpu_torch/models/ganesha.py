@@ -63,7 +63,13 @@ def load_mesh(path: str, camera: Camera, device) -> MeshBVH:
 
 def build(path: str, aspect: float, device):
     """Returns (scene [the floor only] on `device`, camera, lights, mesh).
-    PPMRenderer takes the initial radius from the mesh's box."""
+    PPMRenderer takes the initial radius from the mesh's box. The build is
+    one build.scene span of utils.tracing."""
+    with tracing.span("build.scene"):
+        return _build(path, aspect, device)
+
+
+def _build(path: str, aspect: float, device):
     cam = make_camera(aspect)
     mesh = load_mesh(path, cam, device)
     lo, hi = mesh.bbox_lo.astype(np.float64), mesh.bbox_hi.astype(np.float64)
@@ -103,6 +109,5 @@ def build_pt(path: str, aspect: float, device):
     sky instead of the spot lights. Returns (scene on `device`, camera,
     background (shirley.BACKGROUND), mesh); render it with
     integrator.make_render_fn(..., mesh=mesh)."""
-    with tracing.span("build.scene"):
-        scene, cam, _lights, mesh = build(path, aspect, device)
+    scene, cam, _lights, mesh = build(path, aspect, device)
     return scene, cam, shirley.BACKGROUND, mesh

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ... import _build
+from ...utils import tracing
 from .. import vec
 from . import check_tensors
 
@@ -256,7 +257,8 @@ def gather_flux_chunks(point, normal, active, sbox, photons_t, radius):
     two passes counted as one launch in `gather_flux_chunks.launches`);
     anything else raises. The item count is read on the host (one
     synchronisation per call): it sizes the grid and the (items, 3, 1024)
-    partial buffer, which no bound the host knows keeps small."""
+    partial buffer, which no bound the host knows keeps small; it is a
+    ppm.sync span of utils.tracing."""
     if point.device.type == "cpu":
         return gather_flux_chunks_plain(point, normal, active, sbox,
                                         photons_t, radius)
@@ -279,7 +281,8 @@ def gather_flux_chunks(point, normal, active, sbox, photons_t, radius):
                          "16-byte copies)")
     lists, counts = block_chunk_lists(point, active, sbox, radius)
     item_start = block_items(counts)
-    n_items = int(item_start[-1])  # the host read
+    with tracing.span("ppm.sync"):
+        n_items = int(item_start[-1])  # the host read
     hits = torch.cat([point.T, normal.T,
                       active.to(torch.float32)[None]]).contiguous()
     partial = torch.empty(max(n_items, 1), 3, BLOCK, dtype=torch.float32,

@@ -37,6 +37,20 @@ The radius schedule is r^2(i) = init * (1/i) * prod_{k<i} (k+alpha)/k with
 init = ((bbox extent sum)/3 / ((W+H)/2))^2. The averaged image is written at
 gamma 1/2.2 after every iteration.
 
+Spans and counters (utils/tracing): each render() is one `ppm.render`
+record, with `ppm.photons` (emission and bounces), `ppm.chunks`
+(build_photon_chunks), eye_pass's `ppm.eye` (primaries, the walk or the
+tile kernel) and `ppm.gather` (Morton sort, chunk gather, finish; the
+sharded and ring maps run neither span), `ppm.film` (stitch and film sum)
+and `ppm.sync` around each host read (the diffuse check at the start, the
+chunk gather's item count, the verbose and output paths' reads, the
+closing read). The counters `ppm.deposit_rows`, `ppm.deposits`,
+`ppm.photon_segments`, `ppm.eye_lanes` and `ppm.eye_hits` are the
+iterations' sums; those kept on the device are added there and read once,
+at the closing `ppm.sync`. On a group of ranks `ppm.deposits` and
+`ppm.photon_segments` are the group's, the rest this rank's (the ring
+counts no eye hits).
+
 Not ported: the XLA hash-grid gather (the plain chunk gather covers the
 CPU), the eye-walk compaction ladder (specular mesh scenes only), the fused
 single-chip iteration, phase_cb and the environment knobs of the JAX
@@ -67,6 +81,7 @@ from .ops.lds import M32, Sampler
 from .parallel import group as G
 from .parallel.ppm_ring import ring_eye_pass
 from .scene import TRI_MAT, Scene
+from .utils import tracing
 
 __all__ = ["Light", "light_photon_counts", "photon_lanes", "rank_lane_range",
            "make_photon_pass", "scene_all_diffuse", "gather_hits",
@@ -310,14 +325,15 @@ def make_eye_pass(camera: Camera, width: int, height: int,
                   max_bounces: int, photon_count: int, scene: Scene,
                   eff_bounces: int = None, mesh=None, tile=None,
                   band_rows: int = None, row0: int = 0):
-    """Build eye_pass(offset_base: int, radius: float, grid) -> the
-    iteration's image contribution of the band of image rows [row0, row0 +
-    band_rows) that lie in the image, (rows, W, 3) f32, rows in camera
-    order (not flipped), scaled by 1/photon_count; grid = (photons_t, sbox)
-    from build_photon_chunks. The band is ceil(W*band_rows/1024)*1024 lanes
-    (lane = (y - row0)*W + x, sample offset y*W + x); its lanes past the
-    image are dead. band_rows defaults to the whole image: H, or
-    ceil(H/32)*32 with the tile kernel.
+    """Build eye_pass(offset_base: int, radius: float, grid, hits=None) ->
+    the iteration's image contribution of the band of image rows [row0,
+    row0 + band_rows) that lie in the image, (rows, W, 3) f32, rows in
+    camera order (not flipped), scaled by 1/photon_count; grid = (photons_t,
+    sbox) from build_photon_chunks; hits, where given, a list that gets the
+    band's eye hits (a 0-dim device tensor). The band is
+    ceil(W*band_rows/1024)*1024 lanes (lane = (y - row0)*W + x, sample
+    offset y*W + x); its lanes past the image are dead. band_rows defaults
+    to the whole image: H, or ceil(H/32)*32 with the tile kernel.
 
     eff_bounces caps the specular walk: in a scene with no specular
     material every eye path ends at its first hit; the sampler keeps
@@ -422,10 +438,14 @@ def make_eye_pass(camera: Camera, width: int, height: int,
         result = vec.where3(fd_ok, contrib, torch.zeros_like(contrib))
         return (result * inv_pc)[:n_out * width].reshape(n_out, width, 3)
 
-    def eye_pass(offset_base: int, radius: float, grid):
-        fd_pt, fd_nrm, fd_beta, fd_ok = walk(offset_base)
-        flux = gather_hits(fd_pt, fd_nrm, fd_ok, radius, grid)
-        return finish(fd_beta, fd_ok, flux, radius)
+    def eye_pass(offset_base: int, radius: float, grid, hits=None):
+        with tracing.span("ppm.eye"):
+            fd_pt, fd_nrm, fd_beta, fd_ok = walk(offset_base)
+        if hits is not None:
+            hits.append(fd_ok.sum())
+        with tracing.span("ppm.gather"):
+            flux = gather_hits(fd_pt, fd_nrm, fd_ok, radius, grid)
+            return finish(fd_beta, fd_ok, flux, radius)
 
     eye_pass.primary, eye_pass.walk = primary, walk
     eye_pass.gather, eye_pass.finish = gather_hits, finish
@@ -558,7 +578,12 @@ class PPMRenderer:
         segments as a 0-dim device tensor, eye segments or None: exact only
         when every eye path ends at its first hit), self.photon_map_lengths
         the valid deposits (0-dim device tensors), and self.deposit_rows
-        this rank's deposit rows per iteration."""
+        this rank's deposit rows per iteration. The render is one
+        `ppm.render` record of utils.tracing."""
+        with tracing.span(tracing.PPM_ROOT):
+            return self._render(output, checkpoint_cb, checkpoint_path)
+
+    def _render(self, output, checkpoint_cb, checkpoint_path):
         group = self.group
         n = 1 if group is None else dist.get_world_size(group)
         k = 0 if group is None else dist.get_rank(group)
@@ -573,13 +598,15 @@ class PPMRenderer:
         trace_photons, _, self.deposit_rows = make_photon_pass(
             self.scene, self.lights, self.photon_count, self.max_bounces,
             self.mesh, lane_range=rank_lane_range(lanes, n, k))
-        eff_bounces = (1 if scene_all_diffuse(self.scene, self.mesh)
-                       else self.max_bounces)
+        with tracing.span("ppm.sync"):
+            eff_bounces = (1 if scene_all_diffuse(self.scene, self.mesh)
+                           else self.max_bounces)
         tile = self.tile_tensors(eff_bounces)
         rows, n_bands = self._bands(None if group is None else n,
                                     tile is not None)
         mine = list(range(k, n_bands, n))
         eyes = {b: self._eye_pass(eff_bounces, tile, rows, b) for b in mine}
+        eye_lanes = len(mine) * (-(-(self.width * rows) // 1024) * 1024)
         # one process alone: every map is the replicated one
         mode = self.shard_photon_map if group is not None else False
         dev = self.scene.center.device
@@ -598,48 +625,59 @@ class PPMRenderer:
 
         self.iter_segments = []
         self.photon_map_lengths = []
+        hits = []  # the eye hits of each band and iteration (device)
         for i in range(start_iter, self.iterations):
             t_iter = time.monotonic()
             r = self.radius(i + 1)
             if verbose:
                 print(f"#iteration = {i}, radius = {r:.3f}", flush=True)
-            deps = trace_photons.deposits(i * self.photon_count & M32)
-            segments, n_photons = deps[4], deps[3].sum()
-            if group is not None:
-                G.all_reduce_sum(segments, group)
-                G.all_reduce_sum(n_photons, group)
+            with tracing.span("ppm.photons"):
+                deps = trace_photons.deposits(i * self.photon_count & M32)
+                segments, n_photons = deps[4], deps[3].sum()
+                if group is not None:
+                    G.all_reduce_sum(segments, group)
+                    G.all_reduce_sum(n_photons, group)
+            tracing.count("ppm.deposit_rows", self.deposit_rows)
             if verbose:
-                print(f"  photon map length = {int(n_photons)} "
+                with tracing.span("ppm.sync"):
+                    length = int(n_photons)
+                print(f"  photon map length = {length} "
                       f"({time.monotonic() - t_iter:.2f}s)", flush=True)
-            if mode is False and group is not None:
-                # the whole trace's deposits: every rank's lanes in order
-                deps = [G.all_gather_rows(x.transpose(0, 1), group)
-                        .transpose(0, 1)[:, :lanes] for x in deps[:4]]
-            grid = gk.build_photon_chunks(
-                *(x.reshape(-1, 3) if x.dim() == 3 else x.reshape(-1)
-                  for x in deps[:4]))
+            with tracing.span("ppm.chunks"):
+                if mode is False and group is not None:
+                    # the whole trace's deposits: every rank's lanes in order
+                    deps = [G.all_gather_rows(x.transpose(0, 1), group)
+                            .transpose(0, 1)[:, :lanes] for x in deps[:4]]
+                grid = gk.build_photon_chunks(
+                    *(x.reshape(-1, 3) if x.dim() == 3 else x.reshape(-1)
+                      for x in deps[:4]))
             offset = i * self.width * self.height & M32
+            tracing.count("ppm.eye_lanes", eye_lanes)
             if mode is False:
-                bands = [eyes[b](offset, r, grid) for b in mine]
+                bands = [eyes[b](offset, r, grid, hits) for b in mine]
             elif mode == "ring":
                 bands = [ring_eye_pass(eyes[k], offset, r, grid, group)]
             else:
                 bands = self._sharded_bands(eyes, mine, n_bands, rows, offset,
-                                            r, grid)
-            img = self._stitch(bands, n_bands, rows)
-            img_sum += img.flip(0).to(torch.float64)  # output row order
+                                            r, grid, hits)
+            with tracing.span("ppm.film"):
+                img = self._stitch(bands, n_bands, rows)
+                img_sum += img.flip(0).to(torch.float64)  # output row order
             if verbose:
                 if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
+                    with tracing.span("ppm.sync"):
+                        torch.cuda.synchronize(dev)
                 print(f"  iteration wall = "
                       f"{time.monotonic() - t_iter:.2f}s", flush=True)
             if output is not None and lead:
-                avg = (img_sum / (i + 1)) ** (1.0 / 2.2)  # PPM gamma 1/2.2
-                write_png(output, avg.cpu().numpy())
+                with tracing.span("ppm.sync"):
+                    avg = ((img_sum / (i + 1)) ** (1.0 / 2.2)).cpu().numpy()
+                write_png(output, avg)  # PPM gamma 1/2.2
             if checkpoint_path is not None and lead:
+                with tracing.span("ppm.sync"):
+                    host_sum = img_sum.cpu().numpy()
                 tmp = checkpoint_path + ".tmp.npz"
-                np.savez(tmp, img_sum=img_sum.cpu().numpy(),
-                         next_iteration=i + 1,
+                np.savez(tmp, img_sum=host_sum, next_iteration=i + 1,
                          photon_count=self.photon_count, alpha=self.alpha)
                 os.replace(tmp, checkpoint_path)
             self.iter_segments.append(
@@ -648,7 +686,24 @@ class PPMRenderer:
             self.photon_map_lengths.append(n_photons)
             if checkpoint_cb is not None:
                 checkpoint_cb(i, img_sum)
+        self._count_totals(hits)
         return img_sum
+
+    def _count_totals(self, hits) -> None:
+        """The closing read: the iterations' deposits, photon segments and
+        eye hits, each summed on the device, read in one ppm.sync."""
+        if not self.photon_map_lengths:
+            return
+        sums = [torch.stack(self.photon_map_lengths).sum(),
+                torch.stack([s for s, _ in self.iter_segments]).sum()]
+        if hits:
+            sums.append(torch.stack(hits).sum())
+        with tracing.span("ppm.sync"):
+            totals = torch.stack(sums).tolist()
+        tracing.count("ppm.deposits", totals[0])
+        tracing.count("ppm.photon_segments", totals[1])
+        if hits:
+            tracing.count("ppm.eye_hits", totals[2])
 
     def _stitch(self, bands, n_bands: int, rows: int):
         """The image (H, W, 3) in camera row order from this rank's bands
@@ -669,14 +724,16 @@ class PPMRenderer:
         return torch.cat([parts[b] for b in range(n_bands)])
 
     def _sharded_bands(self, eyes, mine, n_bands: int, rows: int, offset,
-                       radius: float, grid):
+                       radius: float, grid, hits):
         """shard_photon_map=True: this rank's band images. Every band's
         walk records (point, normal, ok) reach every rank, each rank
         gathers every band's partial flux against its own sub-grid, and a
-        band's owner adds the partials in rank order."""
+        band's owner adds the partials in rank order. hits gets the eye
+        hits of this rank's bands."""
         group = self.group
         n = dist.get_world_size(group)
         walks = {b: eyes[b].walk(offset) for b in mine}
+        hits.extend(w[3].sum() for w in walks.values())
         dev = self.scene.center.device
         lanes = -(-(self.width * rows) // 1024) * 1024
         rec = torch.zeros(0, 7, device=dev)

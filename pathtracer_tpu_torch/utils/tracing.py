@@ -2,7 +2,8 @@
 set-up.
 
 `span(name)` times a stage on the host; `count(name, n)` adds n to a
-counter. Both go to a record: each `pt.render` span (ROOT, one per image)
+counter. Both go to a record: each render span (one per image: `pt.render`,
+ROOT, of the path tracer, or `ppm.render`, PPM_ROOT, of the photon mapper)
 opens a new image record, and spans and counts outside any render (scene
 builds, the kernel library's load) go to one set-up record. A record
 holds, by name, each span's total time and self time (its time less that
@@ -32,10 +33,12 @@ from collections import deque
 from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 
-__all__ = ["ROOT", "KEEP", "Record", "span", "count", "images",
-           "first_image", "setup", "reset"]
+__all__ = ["ROOT", "PPM_ROOT", "ROOTS", "KEEP", "Record", "span", "count",
+           "images", "first_image", "setup", "reset"]
 
 ROOT = "pt.render"
+PPM_ROOT = "ppm.render"
+ROOTS = frozenset({ROOT, PPM_ROOT})
 KEEP = 4096
 
 _now = time.time_ns
@@ -67,7 +70,7 @@ class _Store:
         self.n_images = 0
         self.current = self.setup
         # the open spans, innermost last: [name, start_ns, child_ns, range,
-        # the record that was current before a ROOT span (else None)]
+        # the record that was current before a render span (else None)]
         self.stack: list[list] = []
 
 
@@ -75,15 +78,16 @@ _store = _Store()
 
 
 class _Span:
-    __slots__ = ("name",)
+    __slots__ = ("name", "root")
 
     def __init__(self, name: str):
         self.name = name
+        self.root = name in ROOTS
 
     def __enter__(self):
         s = _store
         prev = None
-        if self.name == ROOT:
+        if self.root:
             prev, s.current = s.current, Record()
         t0 = _now()
         rng = None
@@ -137,7 +141,7 @@ def count(name: str, value: int) -> None:
 
 def images(start: int = 0) -> list[Record]:
     """The kept image records from image `start` on, in order (image 0 is
-    the process's first ROOT span, or the first since reset())."""
+    the process's first render span, or the first since reset())."""
     s = _store
     first_kept = s.n_images - len(s.images)
     return list(s.images)[max(0, start - first_kept):]
