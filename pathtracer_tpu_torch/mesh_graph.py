@@ -33,23 +33,10 @@ from __future__ import annotations
 
 import torch
 
-from .ops.cuda import (bvh_walk_kernel, compact_kernel, fused_bounce_kernel,
-                       gather_kernel, shade_kernel, sphere_kernel,
-                       tile_tri_kernel, tri_kernel)
+from .ops.cuda import kernel_wrappers
 from .utils import tracing
 
 __all__ = ["PassGraph"]
-
-_KERNEL_MODULES = (bvh_walk_kernel, compact_kernel, fused_bounce_kernel,
-                   gather_kernel, shade_kernel, sphere_kernel,
-                   tile_tri_kernel, tri_kernel)
-
-
-def _wrappers() -> set:
-    """Every kernel wrapper of ops.cuda: a function with a `launches`
-    count."""
-    return {f for m in _KERNEL_MODULES for f in vars(m).values()
-            if callable(f) and hasattr(f, "launches")}
 
 
 class PassGraph:
@@ -84,8 +71,7 @@ class PassGraph:
         with torch.cuda.stream(side):
             self._pass(renderer)
         main.wait_stream(side)
-        wrappers = _wrappers()
-        before = {f: f.launches for f in wrappers}
+        before = {f: f.launches for f in kernel_wrappers()}
         graph = torch.cuda.CUDAGraph()
         with tracing.span("pt.capture"), torch.cuda.graph(graph):
             self._pass(renderer)

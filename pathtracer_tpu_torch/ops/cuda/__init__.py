@@ -20,3 +20,16 @@ def check_tensors(what: str, device, checks) -> None:
                    if not t.is_contiguous() else None)
         if problem:
             raise ValueError(f"{what}: {problem}")
+
+
+def kernel_wrappers() -> set:
+    """Every kernel wrapper of this package: a function with a `launches`
+    count (what a CUDA graph's replay adds again)."""
+    from . import (bvh_walk_kernel, compact_kernel, fused_bounce_kernel,
+                   gather_kernel, shade_kernel, sphere_kernel,
+                   tile_tri_kernel, tri_kernel)
+    modules = (bvh_walk_kernel, compact_kernel, fused_bounce_kernel,
+               gather_kernel, shade_kernel, sphere_kernel, tile_tri_kernel,
+               tri_kernel)
+    return {f for m in modules for f in vars(m).values()
+            if callable(f) and hasattr(f, "launches")}

@@ -44,12 +44,16 @@ tile kernel) and `ppm.gather` (Morton sort, chunk gather, finish; the
 sharded and ring maps run neither span), `ppm.film` (stitch and film sum)
 and `ppm.sync` around each host read (the diffuse check at the start, the
 chunk gather's item count, the verbose and output paths' reads, the
-closing read). The counters `ppm.deposit_rows`, `ppm.deposits`,
-`ppm.photon_segments`, `ppm.eye_lanes` and `ppm.eye_hits` are the
-iterations' sums; those kept on the device are added there and read once,
-at the closing `ppm.sync`. On a group of ranks `ppm.deposits` and
-`ppm.photon_segments` are the group's, the rest this rank's (the ring
-counts no eye hits).
+closing read). The counters `ppm.iters`, `ppm.deposit_rows`,
+`ppm.deposits`, `ppm.photon_segments`, `ppm.eye_lanes` and `ppm.eye_hits`
+are the iterations' sums; those kept on the device are added there and
+read once, at the closing `ppm.sync`. On a group of ranks `ppm.deposits`
+and `ppm.photon_segments` are the group's, the rest this rank's (the ring
+counts no eye hits). On a card with no group the iterations after the
+first replay a CUDA graph of the photon pass, chunk build and eye walk
+(ppm_graph): each replay is one `ppm.replay` span in place of those
+stages' spans and counts `ppm.graph_iters`, and the capture is one
+`ppm.capture` span.
 
 Not ported: the XLA hash-grid gather (the plain chunk gather covers the
 CPU), the eye-walk compaction ladder (specular mesh scenes only), the fused
@@ -63,7 +67,7 @@ import math
 import os
 import time
 from dataclasses import dataclass
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -143,16 +147,26 @@ def light_photon_counts(lights: List[Light], photon_count: int):
     return counts, starts, off
 
 
-def _emit_rays(lights, counts, starts, lane_ids, u, v):
-    """Light emission per lane, the light picked by the lane's index range.
-    Returns (org, d, flux), each (n, 3) f32."""
+def _emitters(lights, counts, starts, dev):
+    """Each light with its lane range and its constants on the device:
+    (light, count, start, position, quat or None, colour), made once per
+    photon pass, so that emission uploads nothing (a CUDA graph cannot
+    capture an upload)."""
+    const = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    return [(l, c, s, const(l.position),
+             None if l.quat is None else const(l.quat), const(l.color))
+            for l, c, s in zip(lights, counts, starts)]
+
+
+def _emit_rays(emitters, lane_ids, u, v):
+    """Light emission per lane, the light picked by the lane's index range
+    (emitters from _emitters). Returns (org, d, flux), each (n, 3) f32."""
     n = lane_ids.shape[0]
     dev = u.device
-    const = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
     org = torch.zeros(n, 3, device=dev)
     d = torch.zeros(n, 3, device=dev)
     flux = torch.zeros(n, 3, device=dev)
-    for l, c, s in zip(lights, counts, starts):
+    for l, c, s, pos, quat, color in emitters:
         mask = (lane_ids >= s) & (lane_ids < s + c)
         if l.kind == "point":  # uniform sphere
             theta = _TWO_PI * u
@@ -160,17 +174,17 @@ def _emit_rays(lights, counts, starts, lane_ids, u, v):
             sp = torch.sin(phi)
             dl = vec.v3(sp * torch.cos(theta), sp * torch.sin(theta),
                         torch.cos(phi))
-            ol = const(l.position).expand(n, 3)
+            ol = pos.expand(n, 3)
         else:  # spot: disk-cone through the shader-space world ray
             r = _f32(_SPOT_DISK_RADIUS) * vec.sqrt(u)
             theta = v * 2.0 * _PI
             local = vec.v3(r * torch.cos(theta), r * torch.sin(theta),
                            torch.ones_like(u))
-            dl = quat_ops.rotate_inv(const(l.quat).expand(n, 4), local)
-            ol = const(l.position) + _f32(1e-3) * dl
+            dl = quat_ops.rotate_inv(quat.expand(n, 4), local)
+            ol = pos + _f32(1e-3) * dl
         org = vec.where3(mask, ol, org)
         d = vec.where3(mask, dl, d)
-        flux = vec.where3(mask, const(l.color).expand(n, 3), flux)
+        flux = vec.where3(mask, color.expand(n, 3), flux)
     return org, d, flux
 
 
@@ -193,9 +207,11 @@ def rank_lane_range(lanes: int, n: int, rank: int):
 
 def make_photon_pass(scene: Scene, lights, photon_count: int,
                      max_bounces: int, mesh=None, lane_range=None):
-    """Build trace_photons(offset_base: int) -> (pos, nrm, flux, valid,
+    """Build trace_photons(offset_base) -> (pos, nrm, flux, valid,
     segments): deposits of shape (lanes * max_bounces, .) in (bounce, lane)
-    order, and the ray segments traced (a 0-dim tensor);
+    order, and the ray segments traced (a 0-dim tensor); offset_base is an
+    int or a 0-dim int64 tensor on the scene's device (a CUDA graph's
+    input), to the same samples;
     trace_photons.deposits(offset_base) gives the same deposits in
     (max_bounces, lanes, .) form, before the flatten (deposits of lane
     ranges concatenate along that lane axis to the whole trace's), and
@@ -213,15 +229,16 @@ def make_photon_pass(scene: Scene, lights, photon_count: int,
     dev = scene.center.device
     lane_ids = torch.arange(lo, hi, dtype=torch.int64, device=dev)
     hit_setup = make_intersector(scene, mesh)
+    emitters = _emitters(lights, counts, starts, dev)
 
-    def emit(offset_base: int):
+    def emit(offset_base):
         """Bounce-0 photon rays: (offs, org, d, flux, alive)."""
-        offs = (lane_ids + int(offset_base)) & M32
-        org, d, flux = _emit_rays(lights, counts, starts, lane_ids,
-                                  sampler.get(offs, 0), sampler.get(offs, 1))
+        offs = (lane_ids + offset_base) & M32
+        org, d, flux = _emit_rays(emitters, lane_ids, sampler.get(offs, 0),
+                                  sampler.get(offs, 1))
         return offs, org, d, flux, lane_ids < total
 
-    def deposits(offset_base: int):
+    def deposits(offset_base):
         offs, org, d, flux, alive = emit(offset_base)
         segments = torch.zeros((), dtype=torch.int64, device=dev)
         deps = []
@@ -265,7 +282,7 @@ def make_photon_pass(scene: Scene, lights, photon_count: int,
         pos, nrm, fl, valid = (torch.stack(x) for x in zip(*deps))
         return pos, nrm, fl, valid, segments
 
-    def trace_photons(offset_base: int):
+    def trace_photons(offset_base):
         pos, nrm, fl, valid, segments = deposits(offset_base)
         return (pos.reshape(-1, 3), nrm.reshape(-1, 3), fl.reshape(-1, 3),
                 valid.reshape(-1), segments)
@@ -325,7 +342,7 @@ def make_eye_pass(camera: Camera, width: int, height: int,
                   max_bounces: int, photon_count: int, scene: Scene,
                   eff_bounces: int = None, mesh=None, tile=None,
                   band_rows: int = None, row0: int = 0):
-    """Build eye_pass(offset_base: int, radius: float, grid, hits=None) ->
+    """Build eye_pass(offset_base, radius: float, grid, hits=None) ->
     the iteration's image contribution of the band of image rows [row0,
     row0 + band_rows) that lie in the image, (rows, W, 3) f32, rows in
     camera order (not flipped), scaled by 1/photon_count; grid = (photons_t,
@@ -334,6 +351,8 @@ def make_eye_pass(camera: Camera, width: int, height: int,
     ceil(W*band_rows/1024)*1024 lanes (lane = (y - row0)*W + x, sample
     offset y*W + x); its lanes past the image are dead. band_rows defaults
     to the whole image: H, or ceil(H/32)*32 with the tile kernel.
+    offset_base is an int or a 0-dim int64 tensor on the scene's device (a
+    CUDA graph's input), to the same samples.
 
     eff_bounces caps the specular walk: in a scene with no specular
     material every eye path ends at its first hit; the sampler keeps
@@ -343,7 +362,9 @@ def make_eye_pass(camera: Camera, width: int, height: int,
     allowed only when eff_bounces is 1 and the band is of whole 32-row
     tile rows: the eye rays then meet the mesh through intersect_tile_tris
     instead of the walk. eye_pass.primary, .walk, .gather and .finish are
-    the stages, for tests, measurement and the sharded photon maps."""
+    the stages, for tests, measurement and the sharded photon maps;
+    eye_pass.shade(walked, radius, grid) is the part after the walk (the
+    gather and finish of walk's output)."""
     sampler = Sampler(2 + max_bounces)
     eff_bounces = max_bounces if eff_bounces is None else eff_bounces
     if band_rows is None:
@@ -378,16 +399,16 @@ def make_eye_pass(camera: Camera, width: int, height: int,
     normalizer = np.float32(1.0 - 2.0 / 3.0)
     hit_setup = make_intersector(scene, mesh, mesh_intersect)
 
-    def primary(offset_base: int):
+    def primary(offset_base):
         """Bounce-0 eye rays: (offs, org, d, alive). Eye rays are not
         flipped; the image is."""
-        offs = (pix + int(offset_base)) & M32
+        offs = (pix + offset_base) & M32
         cx = (xs + sampler.get(offs, 0)) * inv_w
         cy = (ys + sampler.get(offs, 1)) * inv_h
         d = camera.ray_dirs(cx, cy)
         return offs, torch.zeros_like(d), d, alive0
 
-    def walk(offset_base: int):
+    def walk(offset_base):
         """The specular walk: (fd_pt, fd_nrm, fd_beta, fd_ok), each lane's
         first diffuse hit."""
         offs, org, d, alive = primary(offset_base)
@@ -438,18 +459,61 @@ def make_eye_pass(camera: Camera, width: int, height: int,
         result = vec.where3(fd_ok, contrib, torch.zeros_like(contrib))
         return (result * inv_pc)[:n_out * width].reshape(n_out, width, 3)
 
-    def eye_pass(offset_base: int, radius: float, grid, hits=None):
-        with tracing.span("ppm.eye"):
-            fd_pt, fd_nrm, fd_beta, fd_ok = walk(offset_base)
-        if hits is not None:
-            hits.append(fd_ok.sum())
+    def shade(walked, radius: float, grid):
+        fd_pt, fd_nrm, fd_beta, fd_ok = walked
         with tracing.span("ppm.gather"):
             flux = gather_hits(fd_pt, fd_nrm, fd_ok, radius, grid)
             return finish(fd_beta, fd_ok, flux, radius)
 
+    def eye_pass(offset_base, radius: float, grid, hits=None):
+        with tracing.span("ppm.eye"):
+            walked = walk(offset_base)
+        if hits is not None:
+            hits.append(walked[3].sum())
+        return shade(walked, radius, grid)
+
     eye_pass.primary, eye_pass.walk = primary, walk
     eye_pass.gather, eye_pass.finish = gather_hits, finish
+    eye_pass.shade = shade
     return eye_pass
+
+
+def _flat(deposits):
+    """(pos, nrm, flux, valid) deposits of any leading shape, as
+    build_photon_chunks takes them: (N, 3) and (N,)."""
+    return (x.reshape(-1, 3) if x.dim() == 3 else x.reshape(-1)
+            for x in deposits)
+
+
+class _Passes(NamedTuple):
+    """A render's passes: the photon pass (make_photon_pass), this rank's
+    deposit rows an iteration, the eye passes of this rank's bands (band ->
+    make_eye_pass), and the band rows and count."""
+
+    trace_photons: object
+    deposit_rows: int
+    eyes: dict
+    rows: int
+    n_bands: int
+
+    def prefix(self, photon_offset, eye_offset):
+        """One process's iteration up to the chunk gather, which reads
+        nothing on the host: the photon pass and the map's length, the
+        chunk build and each band's walk with its eye hits. The offsets are
+        ints or 0-dim int64 tensors on the device (ppm_graph's inputs).
+        Returns (photon segments, map length, grid, walks: per band
+        (fd_pt, fd_nrm, fd_beta, fd_ok, eye hits))."""
+        with tracing.span("ppm.photons"):
+            deps = self.trace_photons.deposits(photon_offset)
+            segments, n_photons = deps[4], deps[3].sum()
+        with tracing.span("ppm.chunks"):
+            grid = gk.build_photon_chunks(*_flat(deps[:4]))
+        walks = []
+        for eye in self.eyes.values():
+            with tracing.span("ppm.eye"):
+                walked = eye.walk(eye_offset)
+            walks.append(walked + (walked[3].sum(),))
+        return segments, n_photons, grid, walks
 
 
 @dataclass
@@ -490,7 +554,17 @@ class PPMRenderer:
     True and "ring" agree with the replicated map up to the flux sum's
     association. Every rank returns the same image sum, photon map lengths
     and segments (the group's); rank 0 alone prints, writes the PNG and
-    the checkpoint, and every rank reads the checkpoint."""
+    the checkpoint, and every rank reads the checkpoint.
+
+    On a CUDA device with no group, each iteration's prefix (the photon
+    pass, the chunk build and the eye walk: _Passes.prefix) is a CUDA graph
+    (ppm_graph.IterGraph, loaded there and nowhere else): the renderer's
+    first iteration runs eagerly, as the warm-up before the capture, every
+    later one, in this render and the later ones, is a replay, to the same
+    image bit for bit. A change to a field that the graph's shapes or
+    constants come from (the scene, camera, mesh and lights, width,
+    height, photon_count, max_bounces, tile_primary, and the walk's depth)
+    captures anew. On the CPU and on a group the iterations run eagerly."""
 
     scene: Scene
     camera: Camera
@@ -509,6 +583,7 @@ class PPMRenderer:
 
     def __post_init__(self):
         self.tile_table = self._tile = None
+        self._graph = None  # the IterGraph, made at a render on a card
         if self.shard_photon_map not in (False, True, "ring"):
             raise ValueError(f"shard_photon_map: False, True or 'ring', not "
                              f"{self.shard_photon_map!r}")
@@ -550,6 +625,36 @@ class PPMRenderer:
         if tiled:
             rows = -(-rows // ttk.TILE) * ttk.TILE
         return rows, n if ring else -(-self.height // rows)
+
+    def _passes(self, eff_bounces: int, n: int | None, k: int) -> _Passes:
+        """Rank k of n's passes (n None: this process alone)."""
+        lanes = photon_lanes(self.lights, self.photon_count)
+        trace_photons, _, deposit_rows = make_photon_pass(
+            self.scene, self.lights, self.photon_count, self.max_bounces,
+            self.mesh, lane_range=rank_lane_range(lanes, n or 1, k))
+        tile = self.tile_tensors(eff_bounces)
+        rows, n_bands = self._bands(n, tile is not None)
+        eyes = {b: self._eye_pass(eff_bounces, tile, rows, b)
+                for b in range(k, n_bands, n or 1)}
+        return _Passes(trace_photons, deposit_rows, eyes, rows, n_bands)
+
+    def _iteration_graph(self, eff_bounces: int):
+        """The IterGraph of this renderer's passes, made anew when a field
+        that its shapes or constants come from has changed. The graph's
+        passes hold the scene, camera and mesh, so their ids stay theirs
+        while it lives."""
+        key = (id(self.scene), id(self.camera), id(self.mesh), self.width,
+               self.height, self.photon_count, self.max_bounces,
+               self.tile_primary, eff_bounces,
+               tuple((l.kind, l.position.tobytes(), l.color.tobytes(),
+                      None if l.quat is None else l.quat.tobytes())
+                     for l in self.lights))
+        if self._graph is None or self._graph.key != key:
+            from .ppm_graph import IterGraph
+            self._graph = None  # the old graph's pool goes first
+            self._graph = IterGraph(key, self._passes(eff_bounces, None, 0),
+                                    self.scene.center.device)
+        return self._graph
 
     def _eye_pass(self, eff_bounces: int, tile, rows: int, band: int):
         """make_eye_pass over band `band` of `rows` rows, with the band's
@@ -594,22 +699,23 @@ class PPMRenderer:
             print(f"#photons/iter = {self.photon_count}")
             print(f"#iterations = {self.iterations}")
             print("-----", flush=True)
-        lanes = photon_lanes(self.lights, self.photon_count)
-        trace_photons, _, self.deposit_rows = make_photon_pass(
-            self.scene, self.lights, self.photon_count, self.max_bounces,
-            self.mesh, lane_range=rank_lane_range(lanes, n, k))
         with tracing.span("ppm.sync"):
             eff_bounces = (1 if scene_all_diffuse(self.scene, self.mesh)
                            else self.max_bounces)
-        tile = self.tile_tensors(eff_bounces)
-        rows, n_bands = self._bands(None if group is None else n,
-                                    tile is not None)
-        mine = list(range(k, n_bands, n))
-        eyes = {b: self._eye_pass(eff_bounces, tile, rows, b) for b in mine}
+        dev = self.scene.center.device
+        if group is None and dev.type == "cuda":
+            graph = self._iteration_graph(eff_bounces)
+            passes, prefix = graph.passes, graph.run
+        else:
+            passes = self._passes(eff_bounces, None if group is None else n,
+                                  k)
+            prefix = passes.prefix
+        trace_photons, self.deposit_rows, eyes, rows, n_bands = passes
+        mine = list(eyes)
         eye_lanes = len(mine) * (-(-(self.width * rows) // 1024) * 1024)
+        lanes = photon_lanes(self.lights, self.photon_count)
         # one process alone: every map is the replicated one
         mode = self.shard_photon_map if group is not None else False
-        dev = self.scene.center.device
         img_sum = torch.zeros(self.height, self.width, 3,
                               dtype=torch.float64, device=dev)
         start_iter = 0
@@ -631,29 +737,39 @@ class PPMRenderer:
             r = self.radius(i + 1)
             if verbose:
                 print(f"#iteration = {i}, radius = {r:.3f}", flush=True)
-            with tracing.span("ppm.photons"):
-                deps = trace_photons.deposits(i * self.photon_count & M32)
-                segments, n_photons = deps[4], deps[3].sum()
-                if group is not None:
+            photon_offset = i * self.photon_count & M32
+            offset = i * self.width * self.height & M32
+            if group is None:
+                segments, n_photons, grid, walks = prefix(photon_offset,
+                                                          offset)
+            else:
+                with tracing.span("ppm.photons"):
+                    deps = trace_photons.deposits(photon_offset)
+                    segments, n_photons = deps[4], deps[3].sum()
                     G.all_reduce_sum(segments, group)
                     G.all_reduce_sum(n_photons, group)
+            tracing.count("ppm.iters", 1)
             tracing.count("ppm.deposit_rows", self.deposit_rows)
             if verbose:
                 with tracing.span("ppm.sync"):
                     length = int(n_photons)
                 print(f"  photon map length = {length} "
                       f"({time.monotonic() - t_iter:.2f}s)", flush=True)
-            with tracing.span("ppm.chunks"):
-                if mode is False and group is not None:
-                    # the whole trace's deposits: every rank's lanes in order
-                    deps = [G.all_gather_rows(x.transpose(0, 1), group)
-                            .transpose(0, 1)[:, :lanes] for x in deps[:4]]
-                grid = gk.build_photon_chunks(
-                    *(x.reshape(-1, 3) if x.dim() == 3 else x.reshape(-1)
-                      for x in deps[:4]))
-            offset = i * self.width * self.height & M32
+            if group is not None:
+                with tracing.span("ppm.chunks"):
+                    if mode is False:
+                        # the whole trace's deposits: every rank's lanes in
+                        # order
+                        deps = [G.all_gather_rows(x.transpose(0, 1), group)
+                                .transpose(0, 1)[:, :lanes]
+                                for x in deps[:4]]
+                    grid = gk.build_photon_chunks(*_flat(deps[:4]))
             tracing.count("ppm.eye_lanes", eye_lanes)
-            if mode is False:
+            if group is None:
+                bands = [eyes[b].shade(w[:4], r, grid)
+                         for b, w in zip(mine, walks)]
+                hits.extend(w[4] for w in walks)
+            elif mode is False:
                 bands = [eyes[b](offset, r, grid, hits) for b in mine]
             elif mode == "ring":
                 bands = [ring_eye_pass(eyes[k], offset, r, grid, group)]

@@ -4,8 +4,9 @@ store of the program's records on a fake clock.
 
 - ppm_driver.ops_per_image and .glue_ms_per_image read the device group's
   trace (as pt_driver's readers, which they load);
-- ppm_driver.host_ms_per_image and .deposit_pct read the window's untraced
-  images (from image warmup_images + trace_images + gap_images on);
+- ppm_driver.host_ms_per_image, .deposit_pct and .graph_iter_pct read the
+  window's untraced images (from image warmup_images + trace_images +
+  gap_images on);
 - gather_roofline reads the chunk gather's kernels in the trace and the
   traced images' counters (from image warmup_images on): 36 bytes an eye
   hit and a deposit, over 3.35 TB/s, over the kernels' device time.
@@ -22,12 +23,12 @@ from port_bench import profiling, roofline, spans, spec
 
 TRAFFIC = {"warmup_images": 2, "trace_images": 2, "gap_images": 1}
 SPAN_READERS = ("ppm_driver.host_ms_per_image", "ppm_driver.deposit_pct",
-                "gather_roofline")
+                "ppm_driver.graph_iter_pct", "gather_roofline")
 TRACE_READERS = ("ppm_driver.ops_per_image", "ppm_driver.glue_ms_per_image",
                  "gather_roofline")
 NAMES = ("ppm_driver.ops_per_image", "ppm_driver.glue_ms_per_image",
          "ppm_driver.host_ms_per_image", "ppm_driver.deposit_pct",
-         "gather_roofline")
+         "ppm_driver.graph_iter_pct", "gather_roofline")
 ITEMS, COMBINE = "gather_chunks_items_kernel", "gather_chunks_combine_kernel"
 
 
@@ -49,10 +50,14 @@ def clock(monkeypatch):
     tracing.reset()
 
 
-def _image(clock, ms, sync_ms, rows=1000, deposits=250, hits=400):
+def _image(clock, ms, sync_ms, rows=1000, deposits=250, hits=400,
+           iters=10, graphed=10):
     """One ppm.render record whose spans last the given ms, with the
     counters a render adds."""
     with tracing.span(tracing.PPM_ROOT):
+        tracing.count("ppm.iters", iters)
+        if graphed:
+            tracing.count("ppm.graph_iters", graphed)
         with tracing.span("ppm.photons"):
             clock.t += int(2e6)
         tracing.count("ppm.deposit_rows", rows)
@@ -103,6 +108,23 @@ def test_span_readers_read_the_untraced_images(clock):
     ctx = _ctx()
     assert _read("ppm_driver.host_ms_per_image", ctx) == pytest.approx(350.0)
     assert _read("ppm_driver.deposit_pct", ctx) == pytest.approx(22.5)
+
+
+def test_graph_iter_pct_reads_the_untraced_images(clock):
+    """Replayed iterations over all iterations of the untraced images: 100
+    where each is a replay, 50 where half are, None where none is counted
+    (a program whose renders count no iteration)."""
+    for _ in range(5):  # warm-up (a capture's first iteration), traced, gap
+        _image(clock, 100, 1, graphed=9)
+    _image(clock, 100, 1)
+    _image(clock, 100, 1)
+    assert _read("ppm_driver.graph_iter_pct", _ctx()) == pytest.approx(100.0)
+    _image(clock, 100, 1, iters=20, graphed=0)
+    assert _read("ppm_driver.graph_iter_pct", _ctx()) == pytest.approx(50.0)
+    tracing.reset()
+    for _ in range(7):
+        _image(clock, 100, 1, iters=0, graphed=0)
+    assert _read("ppm_driver.graph_iter_pct", _ctx()) is None
 
 
 def test_gather_roofline_reads_the_traced_images(clock):

@@ -63,6 +63,12 @@ renders must equal the eager passes of the same scene bit for bit, over
 two mesh turns and a second scene object (a new capture), with the eager
 launch counts, progress calls and pt.lanes, and no image may change under
 a later replay.
+The photon mapper replays each iteration's photon pass, chunk build and
+eye walk as a CUDA graph on the card: its renders (the small ganesha with
+the tile eye pass, and cornell) must equal eager renders of the same
+renderer bit for bit, before and after a new capture, with the eager
+launch counts and counters, and no result may change under a later
+replay.
 
 The seeded shirley scenes (seeds 7 and 99999, their own lists) bring other
 sphere counts and layouts: the fused bounce must equal its plain version
@@ -1095,6 +1101,107 @@ def test_ganesha_card_render_matches_cpu(dev):
     for a, b in zip(n_k, n_c):
         assert abs(a - b) <= 0.005 * b, (n_k, n_c)
     assert rmse <= 1e-3, rmse
+
+
+class _EagerIterations:
+    """A stand-in for ppm_graph.IterGraph that runs each iteration's prefix
+    eagerly: the reference of the graph's renders on the card."""
+
+    def __init__(self, passes):
+        self.passes, self.run = passes, passes.prefix
+
+
+def _ppm_renderer(kind, dev, tmp_path):
+    """A small PPMRenderer on the card: the 168-triangle uv-sphere ganesha
+    at 64x64 (the tile kernel's eye pass, 3 photon bounces) or cornell at
+    96x96 (spheres and triangles, no mesh, the specular walk of all 4
+    bounces), 3 iterations."""
+    if kind == "cornell":
+        scene, cam, lights = cornell.build(1.0, dev)
+        return ppm.PPMRenderer(scene, cam, lights, 96, 96, iterations=3,
+                               photon_count=5000, verbose=False)
+    from pathtracer_tpu_torch.io import ply
+    from pathtracer_tpu_torch.models import ganesha
+
+    path = os.path.join(str(tmp_path), "tiny_ganesha.ply")
+    ply.write_mesh(path, *_uv_sphere())
+    scene, cam, lights, mesh = ganesha.build(path, 1.0, dev)
+    return ppm.PPMRenderer(scene, cam, lights, 64, 64, iterations=3,
+                           photon_count=2000, max_bounces=3, verbose=False,
+                           mesh=mesh)
+
+
+@pytest.mark.parametrize("kind", ["ganesha", "cornell"])
+def test_ppm_graph_replay_equals_the_eager_render(dev, tmp_path, monkeypatch,
+                                                  kind):
+    """One PPMRenderer renders twice through its iteration graph, then once
+    more after photon_count changes (a new capture). Each render equals an
+    eager render of the same renderer bit for bit: img_sum,
+    photon_map_lengths, iter_segments, the ppm.eye_hits, ppm.deposits and
+    ppm.photon_segments counters, and the launches of every kernel wrapper
+    (each launch of the captured iteration is counted again on replay).
+    Every iteration but a capture's first (the warm-up) is a replay:
+    ppm.graph_iters 2, 3, then 2 of ppm.iters 3. No earlier result changes
+    under a later replay."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import kernel_wrappers
+    from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
+    from pathtracer_tpu_torch.utils import tracing
+
+    wrappers = sorted(kernel_wrappers(),
+                      key=lambda f: (f.__module__, f.__qualname__))
+    names = ("ppm.eye_hits", "ppm.deposits", "ppm.photon_segments",
+             "ppm.iters")
+
+    def render(r):
+        for f in wrappers:
+            f.launches = 0
+        img = r.render()
+        rec = tracing.images()[-1]
+        return dict(img=img, kept=(img.clone(), list(r.photon_map_lengths)),
+                    lengths=[int(x) for x in r.photon_map_lengths],
+                    segments=[int(s) for s, _ in r.iter_segments],
+                    launches={f: f.launches for f in wrappers},
+                    counts={k: rec.counts[k] for k in names},
+                    graphed=rec.counts.get("ppm.graph_iters", 0))
+
+    def eager(r):
+        with monkeypatch.context() as m:
+            m.setattr(ppm.PPMRenderer, "_iteration_graph",
+                      lambda self, eff: _EagerIterations(
+                          self._passes(eff, None, 0)))
+            return render(r)
+
+    r = _ppm_renderer(kind, dev, tmp_path)
+    its = r.iterations
+    tracing.reset()
+    try:
+        want = eager(r)
+        got = [render(r), render(r)]
+        first_graph = r._graph
+        r.photon_count = 3000
+        want_new = eager(r)
+        got.append(render(r))
+    finally:
+        tracing.reset()
+    assert r._graph is not first_graph
+    launched = {f for f, n in want["launches"].items() if n > 0}
+    assert {sk.intersect_spheres, tk.intersect_tris,
+            gk.gather_flux_chunks} <= launched
+    if kind == "ganesha":
+        assert {bw.bvh8_walk, ttk.intersect_tile_tris} <= launched
+    for g, w, graphed in ((got[0], want, its - 1), (got[1], want, its),
+                          (got[2], want_new, its - 1)):
+        assert torch.equal(g["img"], w["img"]) and float(w["img"].max()) > 0
+        for key in ("lengths", "segments", "launches", "counts"):
+            assert g[key] == w[key], key
+        assert w["counts"]["ppm.iters"] == its and w["graphed"] == 0
+        assert g["graphed"] == graphed
+    assert got[2]["lengths"] != want["lengths"]
+    for g in got:
+        img, lengths = g["kept"]
+        assert torch.equal(g["img"], img)
+        assert [int(x) for x in lengths] == g["lengths"]
 
 
 def test_mesh_wrappers_refuse_malformed_input(dev):

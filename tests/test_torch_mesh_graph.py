@@ -121,7 +121,7 @@ def test_the_graph_module_counts_every_kernel_wrapper():
     from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
     from pathtracer_tpu_torch.ops.cuda import tri_kernel as tk
 
-    got = mesh_graph._wrappers()
+    got = mesh_graph.kernel_wrappers()
     assert {sk.intersect_spheres, tk.intersect_tris, bw.bvh8_walk,
             bw.bvh4_walk, ttk.intersect_tile_tris} <= got
     assert all(isinstance(f.launches, int) for f in got)
