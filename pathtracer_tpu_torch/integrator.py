@@ -42,6 +42,8 @@ neutral in the JAX package, off by default there).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -67,7 +69,7 @@ from .utils import tracing
 
 __all__ = ["make_intersector", "TILE", "tile_sphere_lists", "initial_state",
            "trace_wavefront", "Renderer", "trace", "MeshRenderer",
-           "make_render_fn"]
+           "renderer_per_scene", "make_render_fn"]
 
 _f32 = lambda x: float(np.float32(x))
 _PI = _f32(np.pi)
@@ -333,15 +335,11 @@ def trace_wavefront(sph_table, pack_table, state, off, sampler: Sampler,
     return flush.reshape(3, rows, LANES), segments
 
 
-class Renderer(torch.nn.Module):
-    """The shirley-style path tracer over one sphere scene: the tiled pass
-    loop, the kernel wavefront, film reconstruction. The scene tables, the
-    tile-major ray order and the filter are buffers, so `.to(device)` moves
-    them. fuse_bounce: one fused kernel per bounce (True) or the two-kernel
-    parity path (False). sphere_bvh: build_sphere_bvh of the scene's sphere
-    table, or None to build it at the first pass on the card
-    (sphere_hierarchy). forward(progress=None) -> (image (H, W, 3) f32 on
-    the device, segments traced, int).
+class _BandRenderer(torch.nn.Module):
+    """What both path tracers share: the band of tile rows they trace, the
+    sampler, the primaries' pixel draws, the passes' sums and the film.
+    forward(progress=None) -> (image (H, W, 3) f32 on the device, segments
+    traced, int, read once at the end).
 
     tile_row0, band_tile_rows: trace the band of tile rows [tile_row0,
     tile_row0 + band_tile_rows) only (default: from tile_row0 to the
@@ -349,64 +347,147 @@ class Renderer(torch.nn.Module):
     and band_image give the band's raw sums before any film step (the
     sharded render, parallel/mesh.py). Each lane's result does not depend
     on the band it is traced in, so stitched bands equal the whole image
-    bit for bit."""
+    bit for bit. The sums and segments are buffers that each band_sums
+    zeroes and adds every pass into (a CUDA graph's static outputs on the
+    mesh path); band_sums returns copies of them."""
 
-    def __init__(self, scene: Scene, camera: Camera, background, width: int,
-                 height: int, spp: int, max_bounces: int, device,
-                 fuse_bounce: bool = True,
-                 sphere_bvh: SphereBVH | None = None, tile_row0: int = 0,
-                 band_tile_rows: int | None = None):
+    def __init__(self, camera: Camera, background, width: int, height: int,
+                 spp: int, max_bounces: int, tile_row0: int,
+                 band_tile_rows: int | None):
         super().__init__()
-        self.fuse_bounce = fuse_bounce
-        self._sphere_bvh = sphere_bvh
         self.camera = camera
         self.background = background
         self.width, self.height = width, height
         self.spp, self.max_bounces = spp, max_bounces
         self.sampler = Sampler(2 + 2 * max_bounces)
-
-        # 32x32-tile-major ray order: ray i of band tile t is pixel
-        # ((tile_row0 + ty)*32 + i // 32, tx*32 + i % 32); edge tiles clamp
-        # and mask
         self.tyn, self.txn = -(-height // TILE), -(-width // TILE)
         self.tile_row0 = tile_row0
         self.band = (self.tyn - tile_row0 if band_tile_rows is None
                      else band_tile_rows)
+        # the band's pixels inside the image
+        self.band_pixels = max(0, min(self.band * TILE,
+                                      height - TILE * tile_row0)) * width
+
+    def _register(self, device, **arrays) -> None:
+        """Register each array as a buffer on `device`, with the segments
+        and the film's reconstruction filter (the JAX make_render_fn's
+        defaults)."""
+        arrays["segments"] = np.zeros((), np.int64)
+        arrays["kern2d"] = film.binomial_kernel_2d(
+            order=5, pixel_radius=1).astype(np.float32)
+        for name, x in arrays.items():
+            self.register_buffer(name, torch.as_tensor(x).to(device))
+
+    def _camera_rays(self, pix, x, y, pass_idx):
+        """One pass's primaries through the pixels (x, y), pix = y*W + x:
+        (sample offsets (pix + pass*spp) & M32, unit directions). pass_idx
+        is an int or a 0-dim int64 tensor on the renderer's device (a CUDA
+        graph's input), to the same offsets."""
+        offset = (pix + pass_idx * self.spp) & M32
+        dx = self.sampler.get(offset, 0)
+        dy = self.sampler.get(offset, 1)
+        cx = (x + dx) * float(np.float32(1.0 / self.width))
+        cy = 1.0 - (y + dy) * float(np.float32(1.0 / self.height))
+        return offset, self.camera.ray_dirs(cx, cy)
+
+    def _add_pass(self, pass_idx) -> None:
+        """Pass `pass_idx` added into the sums and segments."""
+        rad, segs = self.trace_pass(pass_idx)
+        self.sums += rad
+        self.segments += segs
+
+    def _pass_adder(self):
+        """The function band_sums adds each pass with."""
+        return self._add_pass
+
+    @torch.no_grad()
+    def band_sums(self, pass_ids, progress=None):
+        """The band's radiance summed over the passes `pass_ids` in their
+        order (band_image's input) and the segments traced (a 0-dim int64
+        tensor), both fresh tensors. progress, if given, is called with the
+        band's pixel count after each pass."""
+        add = self._pass_adder()
+        self.sums.zero_()
+        self.segments.zero_()
+        for p in pass_ids:
+            add(p)
+            tracing.count("pt.passes", 1)
+            if progress is not None:
+                progress(self.band_pixels)
+        return self.sums.clone(), self.segments.clone()
+
+    def image(self, sums: torch.Tensor) -> torch.Tensor:
+        """band_sums' radiance -> the band's rows inside the image; (H, W,
+        3) for the whole image."""
+        return self.band_image(sums)[:max(0, self.height
+                                          - TILE * self.tile_row0)]
+
+    untile = image  # the older name, which port_bench's tests call
+
+    def finish(self, img: torch.Tensor) -> torch.Tensor:
+        """The summed (rows, W, 3) radiance -> the film: the
+        reconstruction filter, then the mean over the spp passes."""
+        return film.finalize(film.apply_filter(img, self.kern2d), self.spp)
+
+    @torch.no_grad()
+    def forward(self, progress=None):
+        sums, segments = self.band_sums(range(self.spp), progress)
+        with tracing.span("pt.film"):
+            img = self.finish(self.image(sums))
+        with tracing.span("pt.sync"):
+            segments = int(segments)
+        tracing.count("pt.live_lanes", segments)
+        return img, segments
+
+
+class Renderer(_BandRenderer):
+    """The shirley-style path tracer over one sphere scene: the tiled pass
+    loop, the kernel wavefront, film reconstruction. The scene tables, the
+    tile-major ray order and the filter are buffers, so `.to(device)` moves
+    them. fuse_bounce: one fused kernel per bounce (True) or the two-kernel
+    parity path (False). The sphere hierarchy is built at the first pass on
+    the card (sphere_hierarchy) and kept with the renderer."""
+
+    def __init__(self, scene: Scene, camera: Camera, background, width: int,
+                 height: int, spp: int, max_bounces: int, device,
+                 fuse_bounce: bool = True, tile_row0: int = 0,
+                 band_tile_rows: int | None = None):
+        super().__init__(camera, background, width, height, spp,
+                         max_bounces, tile_row0, band_tile_rows)
+        self.fuse_bounce = fuse_bounce
+        self._sphere_bvh = None
+
+        # 32x32-tile-major ray order: ray i of band tile t is pixel
+        # ((tile_row0 + ty)*32 + i // 32, tx*32 + i % 32); edge tiles clamp
+        # and mask
         ty, tx, iy, ix = np.meshgrid(
             np.arange(tile_row0, tile_row0 + self.band), np.arange(self.txn),
             np.arange(TILE), np.arange(TILE), indexing="ij")
         y_ord = (ty * TILE + iy).reshape(-1)
         x_ord = (tx * TILE + ix).reshape(-1)
-        valid = (y_ord < height) & (x_ord < width)
         y_c = np.minimum(y_ord, height - 1)
         x_c = np.minimum(x_ord, width - 1)
-        self.band_pixels = int(valid.sum())
         lists, counts = tile_sphere_lists(
             camera, scene.center.cpu().numpy(), scene.radius.cpu().numpy(),
             scene.valid.cpu().numpy(), width, height,
             tile_rows=tile_row0 + self.band)
         first = tile_row0 * self.txn
-
-        buf = lambda name, x: self.register_buffer(
-            name, torch.as_tensor(x).to(device))
-        buf("sph_table", pack_spheres(scene.center, scene.radius,
-                                      scene.valid))
-        buf("pack_table", pack_material_tables(scene.shade_pack))
-        buf("lists", np.ascontiguousarray(lists[first:]))
-        buf("counts", np.ascontiguousarray(counts[first:]))
-        buf("pix", (y_c * width + x_c).astype(np.int64))
-        buf("x_c", x_c.astype(np.float32))
-        buf("y_c", y_c.astype(np.float32))
-        buf("valid", valid)
-        # the reconstruction filter of the JAX make_render_fn's defaults
-        buf("kern2d", film.binomial_kernel_2d(order=5, pixel_radius=1)
-            .astype(np.float32))
+        self._register(
+            device,
+            sph_table=pack_spheres(scene.center, scene.radius, scene.valid),
+            pack_table=pack_material_tables(scene.shade_pack),
+            lists=np.ascontiguousarray(lists[first:]),
+            counts=np.ascontiguousarray(counts[first:]),
+            pix=(y_c * width + x_c).astype(np.int64),
+            x_c=x_c.astype(np.float32), y_c=y_c.astype(np.float32),
+            valid=(y_ord < height) & (x_ord < width),
+            sums=np.zeros((3, y_ord.size // LANES, LANES), np.float32))
 
     def sphere_hierarchy(self) -> SphereBVH | None:
-        """The sphere hierarchy that the kernels walk at bounces >= 1: the
-        one given to the constructor, else build_sphere_bvh of sph_table
-        (host work), built at the first call on the card and kept. None on
-        the CPU, where the plain versions do not read it."""
+        """The sphere hierarchy that the kernels walk at bounces >= 1:
+        build_sphere_bvh of sph_table (host work), built at the first call
+        on the card and kept. None on the CPU, where the plain versions do
+        not read it."""
         if self._sphere_bvh is None and self.sph_table.is_cuda:
             with tracing.span("pt.sphere_bvh"):
                 self._sphere_bvh = build_sphere_bvh(self.sph_table)
@@ -414,12 +495,8 @@ class Renderer(torch.nn.Module):
 
     def initial_wavefront(self, pass_idx: int):
         """Bounce-0 (state, off) of one pass in tile-major order."""
-        offset = (self.pix + pass_idx * self.spp) & M32
-        dx = self.sampler.get(offset, 0)
-        dy = self.sampler.get(offset, 1)
-        cx = (self.x_c + dx) * float(np.float32(1.0 / self.width))
-        cy = 1.0 - (self.y_c + dy) * float(np.float32(1.0 / self.height))
-        state = initial_state(self.camera.ray_dirs(cx, cy), self.valid)
+        offset, d = self._camera_rays(self.pix, self.x_c, self.y_c, pass_idx)
+        state = initial_state(d, self.valid)
         return state, offset.to(torch.int32).reshape(state.shape[1], LANES)
 
     def trace_pass(self, pass_idx: int):
@@ -434,23 +511,6 @@ class Renderer(torch.nn.Module):
                                sphere_bvh=self.sphere_hierarchy(),
                                fuse_bounce=self.fuse_bounce)
 
-    @torch.no_grad()
-    def band_sums(self, pass_ids, progress=None):
-        """The band's radiance summed over the passes `pass_ids` in their
-        order, (3, rows, 128) tile-major, and the segments traced (a 0-dim
-        int64 tensor). progress, if given, is called with the band's pixel
-        count after each pass."""
-        sums = torch.zeros(3, self.pix.numel() // LANES, LANES,
-                           dtype=torch.float32, device=self.pix.device)
-        segments = torch.zeros((), dtype=torch.int64, device=self.pix.device)
-        for p in pass_ids:
-            rad, segs = self.trace_pass(p)
-            sums += rad
-            segments += segs
-            if progress is not None:
-                progress(self.band_pixels)
-        return sums, segments
-
     def band_image(self, planes: torch.Tensor) -> torch.Tensor:
         """(3, rows, 128) tile-major planes -> the band's (band*32, W, 3)
         rows, contiguous (the film's input layout, whatever the band)."""
@@ -460,26 +520,9 @@ class Renderer(torch.nn.Module):
                                                  self.txn * TILE, 3)
         return img[:, :self.width].contiguous()
 
-    def untile(self, planes: torch.Tensor) -> torch.Tensor:
-        """(3, rows, 128) tile-major radiance planes -> the band's rows
-        inside the image; (H, W, 3) for the whole image."""
-        return self.band_image(planes)[:max(0, self.height
-                                                - TILE * self.tile_row0)]
 
-    @torch.no_grad()
-    def forward(self, progress=None):
-        sums, segments = self.band_sums(range(self.spp), progress)
-        with tracing.span("pt.film"):
-            img = film.finalize(film.apply_filter(self.untile(sums),
-                                                  self.kern2d), self.spp)
-        with tracing.span("pt.sync"):
-            segments = int(segments)
-        tracing.count("pt.live_lanes", segments)
-        return img, segments
-
-
-def trace(scene: Scene, sampler: Sampler, org, d, offset, max_bounces: int,
-          sky_colors, alive0, mesh=None, mesh_intersect0=None):
+def trace(sampler: Sampler, org, d, offset, max_bounces: int, sky_colors,
+          alive0, hit_setup, hit_setup0=None):
     """Trace a wavefront of rays through a scene with an optional triangle
     mesh to completion: the JAX trace's composite tier (make_intersector,
     shading.scatter) over (N, 3) rays, N a multiple of 1024.
@@ -488,16 +531,13 @@ def trace(scene: Scene, sampler: Sampler, org, d, offset, max_bounces: int,
     colours of a background of mode 1 as a (2, 3) f32 tensor on the rays'
     device (MeshRenderer's buffer), which a miss sees as models.shirley.sky
     computes it, without sky()'s upload of the colours at every bounce (a
-    CUDA graph cannot capture an upload); alive0 (N,) bool; mesh an
-    ops.bvh.MeshBVH; mesh_intersect0(org, d, alive) -> (t, u, v, idx, hit)
-    replaces the mesh walk at bounce 0 (the tile-culled kernel of
-    origin-zero primaries). Bounce b draws its two samples at dimensions
-    2 + 2b and 3 + 2b. Returns (radiance (N, 3),
-    segments: the live lanes summed over the bounces, a 0-dim int64
-    tensor on the device)."""
-    hit_setup = make_intersector(scene, mesh)
-    hit_setup0 = (hit_setup if mesh_intersect0 is None
-                  else make_intersector(scene, mesh, mesh_intersect0))
+    CUDA graph cannot capture an upload); alive0 (N,) bool; hit_setup a
+    make_intersector of the scene and its mesh, hit_setup0 one that
+    replaces it at bounce 0 (the tile-culled kernel of origin-zero
+    primaries). Bounce b draws its two samples at dimensions 2 + 2b and
+    3 + 2b. Returns (radiance (N, 3), segments: the live lanes summed over
+    the bounces, a 0-dim int64 tensor on the device)."""
+    hit_setup0 = hit_setup if hit_setup0 is None else hit_setup0
     sky_lo, sky_hi = (c.expand_as(org) for c in sky_colors)
     alive = alive0
     attn = torch.ones_like(org)
@@ -533,11 +573,10 @@ def trace(scene: Scene, sampler: Sampler, org, d, offset, max_bounces: int,
     return rad, segments
 
 
-class MeshRenderer(torch.nn.Module):
+class MeshRenderer(_BandRenderer):
     """The path tracer over a scene with a triangle mesh (the path-traced
     ganesha): one `trace` per pass, the passes' radiance summed on the
-    device, film reconstruction. forward(progress=None) -> (image (H, W, 3)
-    f32 on the device, segments traced, int, read once at the end).
+    device, film reconstruction.
 
     Lanes are in raster order over the band's rows, lane = (y - y0) * W +
     x, padded to a multiple of 1024; lanes past the image are dead. The
@@ -551,127 +590,107 @@ class MeshRenderer(torch.nn.Module):
     a table built once per renderer with the path tracer's film map
     (flip_y=True), back-face culled when the mesh is watertight, and the
     band's maps of it (band_tile_maps); bounces >= 1 walk the mesh's BVH8
-    table. band_sums and band_image give the band's raw sums before any
-    film step (the sharded render, parallel/mesh.py).
+    table. The composite intersectors of both (hit_setup0, hit_setup) are
+    built once per renderer.
 
-    On a CUDA device band_sums runs each pass as a CUDA graph
-    (mesh_graph.PassGraph, loaded there and nowhere else): the first pass
-    eagerly, as the warm-up before the capture, every later one as a
-    replay of the captured pass, to the same sums bit for bit. On the CPU,
-    and under another graph's capture, the passes run eagerly."""
+    On a CUDA device band_sums adds each pass as a CUDA graph (graph.Replay,
+    loaded there and nowhere else): the first pass eagerly, as the warm-up
+    before the capture, every later one as a replay of the captured pass,
+    to the same sums bit for bit. On the CPU, and under another graph's
+    capture, the passes run eagerly."""
 
     def __init__(self, scene: Scene, camera: Camera, background, width: int,
                  height: int, spp: int, max_bounces: int, device, mesh,
                  tile_row0: int = 0, band_tile_rows: int | None = None):
-        super().__init__()
-        self.scene, self.camera, self.mesh = scene, camera, mesh
-        self.background = background
-        self.width, self.height = width, height
-        self.spp, self.max_bounces = spp, max_bounces
-        self.sampler = Sampler(2 + 2 * max_bounces)
+        super().__init__(camera, background, width, height, spp,
+                         max_bounces, tile_row0, band_tile_rows)
+        self.scene, self.mesh = scene, mesh
         mode, sky_colors = background
         if mode != 1:
             raise ValueError(f"MeshRenderer: no sky of background mode {mode}")
-        self.tile_row0 = tile_row0
-        self.band = (-(-height // TILE) - tile_row0 if band_tile_rows is None
-                     else band_tile_rows)
-        self.rows = self.band * TILE
-        lanes = -(-(self.rows * width) // 1024) * 1024
+        self.rows = rows = self.band * TILE
+        lanes = -(-(rows * width) // 1024) * 1024
         self.tile_table = ttk.build_tile_tri_table(
             camera, mesh.tri_a, mesh.tri_e1, mesh.tri_e2, width, height,
             bvh=mesh, backface_cull=mesh.watertight, flip_y=True)
         lane = np.arange(lanes)
         y = tile_row0 * TILE + lane // width
-        alive0 = (lane < self.rows * width) & (y < height)
-        self.band_pixels = int(alive0.sum())
-        buf = lambda name, x: self.register_buffer(
-            name, torch.as_tensor(x).to(device))
-        buf("lane", (tile_row0 * TILE * width + lane).astype(np.int64))
-        buf("x", (lane % width).astype(np.float32))
-        buf("y", y.astype(np.float32))
-        buf("alive0", alive0)
-        buf("tile", self.tile_table.table)
-        for name, x in zip(("tile_start", "tile_src"), ttk.band_tile_maps(
-                self.tile_table, tile_row0, self.band)):
-            buf(name, x)
-        buf("kern2d", film.binomial_kernel_2d(order=5, pixel_radius=1)
-            .astype(np.float32))
-        buf("sky_colors", np.asarray(sky_colors, np.float32))
-        self._graph = None  # the PassGraph, made at the first pass on a card
+        tile_start, tile_src = ttk.band_tile_maps(self.tile_table, tile_row0,
+                                                  self.band)
+        self._register(
+            device, lane=(tile_row0 * TILE * width + lane).astype(np.int64),
+            x=(lane % width).astype(np.float32), y=y.astype(np.float32),
+            alive0=(lane < rows * width) & (y < height),
+            tile=self.tile_table.table, tile_start=tile_start,
+            tile_src=tile_src,
+            sky_colors=np.asarray(sky_colors, np.float32),
+            sums=np.zeros((lanes, 3), np.float32))
+        tile = (self.tile, self.tile_start, self.tile_src)
+
+        def mesh_intersect0(org, d, alive):
+            """The tile-culled kernel over the raster band of whole tiles
+            (ttk.intersect_band); org is unused (primaries start at the
+            origin)."""
+            return ttk.intersect_band(tile, d, alive, width, rows)
+
+        # closures over tensors, not over the renderer: no reference cycle
+        # keeps a dropped renderer, and its graph's pool, alive
+        self.mesh_intersect0 = mesh_intersect0
+        self.hit_setup = make_intersector(scene, mesh)
+        self.hit_setup0 = make_intersector(scene, mesh, mesh_intersect0)
+        self._graph = None  # the pass's Replay, made at a pass on a card
 
     def primary(self, pass_idx):
         """Bounce-0 rays of one pass: (offset, org, d, alive), offset =
-        y*W + x + pass*spp. pass_idx is an int or a 0-dim int64 tensor on
-        the renderer's device (a CUDA graph's input), to the same offsets."""
-        offset = (self.lane + pass_idx * self.spp) & M32
-        dx = self.sampler.get(offset, 0)
-        dy = self.sampler.get(offset, 1)
-        cx = (self.x + dx) * float(np.float32(1.0 / self.width))
-        cy = 1.0 - (self.y + dy) * float(np.float32(1.0 / self.height))
-        d = self.camera.ray_dirs(cx, cy)
+        y*W + x + pass*spp. pass_idx as _camera_rays'."""
+        offset, d = self._camera_rays(self.lane, self.x, self.y, pass_idx)
         return offset, torch.zeros_like(d), d, self.alive0
-
-    def mesh_intersect0(self, org, d, alive):
-        """The tile-culled kernel over the raster band of whole tiles
-        (ttk.intersect_band); org is unused (primaries start at the
-        origin)."""
-        return ttk.intersect_band((self.tile, self.tile_start,
-                                   self.tile_src), d, alive, self.width,
-                                  self.rows)
 
     def trace_pass(self, pass_idx):
         """One sample per pixel: (radiance (lanes, 3) in raster order,
         segments tensor). pass_idx as primary's."""
         with tracing.span("pt.primary"):
             offset, org, d, alive = self.primary(pass_idx)
-        return trace(self.scene, self.sampler, org, d, offset,
-                     self.max_bounces, self.sky_colors, alive, self.mesh,
-                     self.mesh_intersect0)
+        return trace(self.sampler, org, d, offset, self.max_bounces,
+                     self.sky_colors, alive, self.hit_setup, self.hit_setup0)
 
-    @torch.no_grad()
-    def band_sums(self, pass_ids, progress=None):
-        """The band's radiance summed over the passes `pass_ids` in their
-        order, (lanes, 3) in raster order, and the segments traced (a 0-dim
-        int64 tensor). progress, if given, is called with the band's pixel
-        count after each pass."""
-        if self.lane.is_cuda and not torch.cuda.is_current_stream_capturing():
-            if self._graph is None:
-                from .mesh_graph import PassGraph
-                self._graph = PassGraph(self)
-            return self._graph.band_sums(self, pass_ids, progress)
-        sums = torch.zeros(self.lane.shape[0], 3, dtype=torch.float32,
-                           device=self.lane.device)
-        segments = torch.zeros((), dtype=torch.int64,
-                               device=self.lane.device)
-        for p in pass_ids:
-            rad, segs = self.trace_pass(p)
-            sums += rad
-            segments += segs
-            tracing.count("pt.passes", 1)
-            if progress is not None:
-                progress(self.band_pixels)
-        return sums, segments
+    def _pass_adder(self):
+        if not self.lane.is_cuda or torch.cuda.is_current_stream_capturing():
+            return self._add_pass
+        if self._graph is None:
+            from .graph import Replay
+            self._graph = Replay(_BandRenderer._add_pass, 1, self.lane.device,
+                                 "pt", "pt.graph_passes")
+        return functools.partial(self._graph, self)
 
     def band_image(self, rad: torch.Tensor) -> torch.Tensor:
         """(lanes, 3) raster radiance -> the band's (band*32, W, 3) rows."""
         return rad[:self.rows * self.width].reshape(self.rows, self.width, 3)
 
-    def image(self, rad: torch.Tensor) -> torch.Tensor:
-        """(lanes, 3) raster radiance -> the band's rows inside the image;
-        (H, W, 3) for the whole image."""
-        return self.band_image(rad)[:max(0, self.height
-                                         - TILE * self.tile_row0)]
 
-    @torch.no_grad()
-    def forward(self, progress=None):
-        sums, segments = self.band_sums(range(self.spp), progress)
-        with tracing.span("pt.film"):
-            img = film.finalize(film.apply_filter(self.image(sums),
-                                                  self.kern2d), self.spp)
-        with tracing.span("pt.sync"):
-            segments = int(segments)
-        tracing.count("pt.live_lanes", segments)
-        return img, segments
+def renderer_per_scene(camera: Camera, background, width: int, height: int,
+                       spp: int, max_bounces: int, device,
+                       fuse_bounce: bool = True, mesh=None, **band):
+    """renderer(scene) -> the renderer of a scene object: a MeshRenderer of
+    it and `mesh` when a mesh is given, else a Renderer (with fuse_bounce;
+    band: its tile_row0 and band_tile_rows). It is built, in a
+    `pt.renderer_init` span, at the first call with a scene object (its
+    tables, tile lists or tile table, buffers; then at its first pass on a
+    card the sphere hierarchy or the pass's CUDA graph) and kept while the
+    same object comes again."""
+    kept = [None, None]  # the scene last rendered and its renderer
+
+    def renderer(scene: Scene):
+        if kept[0] is not scene:
+            args = (scene, camera, background, width, height, spp,
+                    max_bounces, device)
+            with tracing.span("pt.renderer_init"):
+                kept[:] = scene, (MeshRenderer(*args, mesh, **band)
+                                  if mesh is not None else
+                                  Renderer(*args, fuse_bounce, **band))
+        return kept[1]
+
+    return renderer
 
 
 def make_render_fn(camera: Camera, background, width: int, height: int,
@@ -681,40 +700,17 @@ def make_render_fn(camera: Camera, background, width: int, height: int,
     `device`, segments int). progress, if given, is called with the pixel
     count after each pass (the CLI's progress bar). fuse_bounce=False
     renders with the two-kernel bounce, to the same image: a parity path,
-    not a tuning option. The kernels'
-    wrappers run their plain PyTorch versions when `device` is the CPU.
-    The sphere hierarchy is built at the first render of a scene object
-    and reused while the same object is rendered again.
-
-    mesh: an ops.bvh.MeshBVH on `device` (models.ganesha.build_pt's);
-    the render is then a MeshRenderer of the scene and the mesh (the JAX
-    make_render_fn(..., mesh=mesh)), built at the first render of a scene
-    object (its tile table and buffers) and reused while the same object
-    is rendered again. fuse_bounce does not apply there."""
-    if mesh is not None:
-        kept = [None, None]  # the scene last rendered and its renderer
-
-        def render_mesh(scene: Scene, progress=None):
-            with tracing.span(tracing.ROOT):
-                if kept[0] is not scene:
-                    with tracing.span("pt.renderer_init"):
-                        kept[:] = scene, MeshRenderer(
-                            scene, camera, background, width, height, spp,
-                            max_bounces, device, mesh)
-                return kept[1](progress)
-
-        return render_mesh
-
-    last = [None, None]  # the scene last rendered and its sphere hierarchy
+    not a tuning option. The kernels' wrappers run their plain PyTorch
+    versions when `device` is the CPU. mesh: an ops.bvh.MeshBVH on
+    `device` (models.ganesha.build_pt's); the render is then a
+    MeshRenderer of the scene and the mesh (the JAX make_render_fn(...,
+    mesh=mesh)), and fuse_bounce does not apply. Either renderer is kept
+    per scene object (renderer_per_scene)."""
+    renderer = renderer_per_scene(camera, background, width, height, spp,
+                                  max_bounces, device, fuse_bounce, mesh)
 
     def render(scene: Scene, progress=None):
         with tracing.span(tracing.ROOT):
-            with tracing.span("pt.renderer_init"):
-                r = Renderer(scene, camera, background, width, height, spp,
-                             max_bounces, device, fuse_bounce,
-                             sphere_bvh=last[1] if last[0] is scene else None)
-            out = r(progress)
-            last[:] = scene, r.sphere_hierarchy()
-        return out
+            return renderer(scene)(progress)
 
     return render

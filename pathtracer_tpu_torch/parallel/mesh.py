@@ -17,9 +17,8 @@ reshape(dp, sp)):
 
 Each lane's result does not depend on its band, so an sp-only split gives
 make_render_fn's image bit for bit; a dp split regroups the sum over the
-passes (atol 1e-5, the JAX package's test). The sphere hierarchy (on the
-card) and a mesh renderer's tile table are built per rank at its first
-render of a scene and kept while the same scene object is rendered. The
+passes (atol 1e-5, the JAX package's test). Each rank keeps its band's
+renderer per scene object (integrator.renderer_per_scene). The
 mesh scene's bounce 0 goes through the tile kernel over the band's maps,
 as the single-device MeshRenderer does (the JAX mesh path walks the BVH
 there).
@@ -31,8 +30,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from .. import film
-from ..integrator import TILE, MeshRenderer, Renderer
+from ..integrator import TILE, renderer_per_scene
 from . import group as G
 
 __all__ = ["make_mesh", "make_sharded_render_fn"]
@@ -61,20 +59,9 @@ def make_sharded_render_fn(camera, background, width: int, height: int,
     band = -(-tyn // sp)
     per = -(-spp // dp)
     passes = range(d * per, min((d + 1) * per, spp))
-    kept = [None, None]  # the scene last rendered, its renderer or hierarchy
-
-    def renderer(scene):
-        band_kw = dict(tile_row0=s * band, band_tile_rows=band)
-        args = (scene, camera, background, width, height, spp, max_bounces,
-                device)
-        if scene_mesh is not None:
-            if kept[0] is not scene:
-                kept[:] = scene, MeshRenderer(*args, scene_mesh, **band_kw)
-            return kept[1]
-        r = Renderer(*args, sphere_bvh=kept[1] if kept[0] is scene else None,
-                     **band_kw)
-        kept[:] = scene, r.sphere_hierarchy()
-        return r
+    renderer = renderer_per_scene(camera, background, width, height, spp,
+                                  max_bounces, device, mesh=scene_mesh,
+                                  tile_row0=s * band, band_tile_rows=band)
 
     def render(scene, progress=None):
         r = renderer(scene)
@@ -86,7 +73,6 @@ def make_sharded_render_fn(camera, background, width: int, height: int,
         bands = [torch.empty_like(mine) for _ in range(sp)]
         dist.all_gather(bands, mine, group=g_sp)
         img = torch.cat(bands)[:height]
-        img = film.finalize(film.apply_filter(img, r.kern2d), spp)
-        return img, int(segments)
+        return r.finish(img), int(segments)
 
     return render

@@ -51,7 +51,7 @@ read once, at the closing `ppm.sync`. On a group of ranks `ppm.deposits`
 and `ppm.photon_segments` are the group's, the rest this rank's (the ring
 counts no eye hits). On a card with no group the iterations after the
 first replay a CUDA graph of the photon pass, chunk build and eye walk
-(ppm_graph): each replay is one `ppm.replay` span in place of those
+(graph.Replay): each replay is one `ppm.replay` span in place of those
 stages' spans and counts `ppm.graph_iters`, and the capture is one
 `ppm.capture` span.
 
@@ -478,6 +478,14 @@ def make_eye_pass(camera: Camera, width: int, height: int,
     return eye_pass
 
 
+def _fresh(out):
+    """The prefix's outputs with each 0-dim tensor copied, so no kept
+    result aliases memory that the next replay writes."""
+    if isinstance(out, torch.Tensor):
+        return out.clone() if out.dim() == 0 else out
+    return type(out)(_fresh(x) for x in out)
+
+
 def _flat(deposits):
     """(pos, nrm, flux, valid) deposits of any leading shape, as
     build_photon_chunks takes them: (N, 3) and (N,)."""
@@ -500,7 +508,7 @@ class _Passes(NamedTuple):
         """One process's iteration up to the chunk gather, which reads
         nothing on the host: the photon pass and the map's length, the
         chunk build and each band's walk with its eye hits. The offsets are
-        ints or 0-dim int64 tensors on the device (ppm_graph's inputs).
+        ints or 0-dim int64 tensors on the device (a CUDA graph's inputs).
         Returns (photon segments, map length, grid, walks: per band
         (fd_pt, fd_nrm, fd_beta, fd_ok, eye hits))."""
         with tracing.span("ppm.photons"):
@@ -558,7 +566,7 @@ class PPMRenderer:
 
     On a CUDA device with no group, each iteration's prefix (the photon
     pass, the chunk build and the eye walk: _Passes.prefix) is a CUDA graph
-    (ppm_graph.IterGraph, loaded there and nowhere else): the renderer's
+    (graph.Replay, loaded there and nowhere else): the renderer's
     first iteration runs eagerly, as the warm-up before the capture, every
     later one, in this render and the later ones, is a replay, to the same
     image bit for bit. A change to a field that the graph's shapes or
@@ -583,7 +591,7 @@ class PPMRenderer:
 
     def __post_init__(self):
         self.tile_table = self._tile = None
-        self._graph = None  # the IterGraph, made at a render on a card
+        self._graph = None  # (key, passes, Replay), made on a card
         if self.shard_photon_map not in (False, True, "ring"):
             raise ValueError(f"shard_photon_map: False, True or 'ring', not "
                              f"{self.shard_photon_map!r}")
@@ -639,22 +647,26 @@ class PPMRenderer:
         return _Passes(trace_photons, deposit_rows, eyes, rows, n_bands)
 
     def _iteration_graph(self, eff_bounces: int):
-        """The IterGraph of this renderer's passes, made anew when a field
-        that its shapes or constants come from has changed. The graph's
-        passes hold the scene, camera and mesh, so their ids stay theirs
-        while it lives."""
+        """(passes, prefix): this renderer's _Passes and their prefix as a
+        CUDA graph (graph.Replay), made anew when a field that its shapes or
+        constants come from has changed. prefix returns the 0-dim outputs
+        as copies, the rest as the graph's static outputs. The kept passes
+        hold the scene, camera and mesh, so their ids stay theirs while the
+        graph lives."""
         key = (id(self.scene), id(self.camera), id(self.mesh), self.width,
                self.height, self.photon_count, self.max_bounces,
                self.tile_primary, eff_bounces,
                tuple((l.kind, l.position.tobytes(), l.color.tobytes(),
                       None if l.quat is None else l.quat.tobytes())
                      for l in self.lights))
-        if self._graph is None or self._graph.key != key:
-            from .ppm_graph import IterGraph
+        if self._graph is None or self._graph[0] != key:
+            from .graph import Replay
             self._graph = None  # the old graph's pool goes first
-            self._graph = IterGraph(key, self._passes(eff_bounces, None, 0),
-                                    self.scene.center.device)
-        return self._graph
+            self._graph = (key, self._passes(eff_bounces, None, 0),
+                           Replay(_Passes.prefix, 2, self.scene.center.device,
+                                  "ppm", "ppm.graph_iters"))
+        _, passes, replay = self._graph
+        return passes, lambda *offsets: _fresh(replay(passes, *offsets))
 
     def _eye_pass(self, eff_bounces: int, tile, rows: int, band: int):
         """make_eye_pass over band `band` of `rows` rows, with the band's
@@ -704,8 +716,7 @@ class PPMRenderer:
                            else self.max_bounces)
         dev = self.scene.center.device
         if group is None and dev.type == "cuda":
-            graph = self._iteration_graph(eff_bounces)
-            passes, prefix = graph.passes, graph.run
+            passes, prefix = self._iteration_graph(eff_bounces)
         else:
             passes = self._passes(eff_bounces, None if group is None else n,
                                   k)

@@ -34,7 +34,7 @@ from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 
 __all__ = ["ROOT", "PPM_ROOT", "ROOTS", "KEEP", "Record", "span", "count",
-           "images", "first_image", "setup", "reset"]
+           "counts", "images", "first_image", "setup", "reset"]
 
 ROOT = "pt.render"
 PPM_ROOT = "ppm.render"
@@ -137,6 +137,12 @@ def count(name: str, value: int) -> None:
     """Add `value` to the counter `name` of the current record."""
     c = _store.current.counts
     c[name] = c.get(name, 0) + value
+
+
+def counts() -> dict[str, int]:
+    """The counters of the current record (the open image's, else the
+    set-up's), by name."""
+    return _store.current.counts
 
 
 def images(start: int = 0) -> list[Record]:

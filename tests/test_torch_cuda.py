@@ -1103,12 +1103,12 @@ def test_ganesha_card_render_matches_cpu(dev):
     assert rmse <= 1e-3, rmse
 
 
-class _EagerIterations:
-    """A stand-in for ppm_graph.IterGraph that runs each iteration's prefix
-    eagerly: the reference of the graph's renders on the card."""
-
-    def __init__(self, passes):
-        self.passes, self.run = passes, passes.prefix
+def _eager_iterations(self, eff_bounces):
+    """A stand-in for PPMRenderer._iteration_graph that runs each
+    iteration's prefix eagerly: the reference of the graph's renders on the
+    card."""
+    passes = self._passes(eff_bounces, None, 0)
+    return passes, passes.prefix
 
 
 def _ppm_renderer(kind, dev, tmp_path):
@@ -1167,9 +1167,7 @@ def test_ppm_graph_replay_equals_the_eager_render(dev, tmp_path, monkeypatch,
 
     def eager(r):
         with monkeypatch.context() as m:
-            m.setattr(ppm.PPMRenderer, "_iteration_graph",
-                      lambda self, eff: _EagerIterations(
-                          self._passes(eff, None, 0)))
+            m.setattr(ppm.PPMRenderer, "_iteration_graph", _eager_iterations)
             return render(r)
 
     r = _ppm_renderer(kind, dev, tmp_path)

@@ -185,10 +185,10 @@ def test_tile_bounce0_matches_walk_bounce0(built):
     offset, org, d, alive = r.primary(0)
     hit0 = r.mesh_intersect0(org, d, alive)[4]
     assert 100 < int(hit0.sum()) < W * H - 100
-    tiled = trace(scene, r.sampler, org, d, offset, 4, r.sky_colors, alive,
-                  mesh, r.mesh_intersect0)
-    walked = trace(scene, r.sampler, org, d, offset, 4, r.sky_colors, alive,
-                   mesh)
+    tiled = trace(r.sampler, org, d, offset, 4, r.sky_colors, alive,
+                  r.hit_setup, r.hit_setup0)
+    walked = trace(r.sampler, org, d, offset, 4, r.sky_colors, alive,
+                   r.hit_setup)
     assert int(tiled[1]) == int(walked[1])
     np.testing.assert_allclose(tiled[0].numpy(), walked[0].numpy(),
                                rtol=1e-3, atol=1e-4)

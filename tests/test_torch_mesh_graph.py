@@ -1,5 +1,5 @@
-"""The mesh path tracer's CUDA-graph path (pathtracer_tpu_torch.mesh_graph)
-on the CPU, where no graph is captured: the pass index as a 0-dim tensor
+"""The mesh path tracer's CUDA-graph path (pathtracer_tpu_torch.graph) on
+the CPU, where no graph is captured: the pass index as a 0-dim tensor
 (the graph's input) gives the int form's primaries, and the graph module
 stays out of every render that is not a mesh render on a card — the
 shirley renders never load it, and a mesh render on the CPU neither. The
@@ -24,7 +24,7 @@ sys.path.insert(0, ROOT)
 from tools.make_test_mesh import uv_sphere  # noqa: E402
 
 CPU = torch.device("cpu")
-GRAPH_MODULE = "pathtracer_tpu_torch.mesh_graph"
+GRAPH_MODULE = "pathtracer_tpu_torch.graph"
 
 
 def _tiny_ganesha(path):
@@ -70,9 +70,9 @@ def test_renders_off_the_card_never_touch_the_graph_module(tmp_path,
                                                            monkeypatch, kind):
     """With the graph module replaced by one that raises on any use, the
     shirley renders (fused and two-kernel) and the mesh render on the CPU
-    finish; the mesh render counts its passes, none of them replayed."""
+    finish and count their passes, none of them replayed."""
     monkeypatch.setitem(sys.modules, GRAPH_MODULE, _Refuse())
-    monkeypatch.setattr(pathtracer_tpu_torch, "mesh_graph", _Refuse(),
+    monkeypatch.setattr(pathtracer_tpu_torch, "graph", _Refuse(),
                         raising=False)
     tracing.reset()
     try:
@@ -82,7 +82,7 @@ def test_renders_off_the_card_never_touch_the_graph_module(tmp_path,
         tracing.reset()
     assert segments > 0 and bool(torch.isfinite(img).all())
     assert "pt.graph_passes" not in counts
-    assert counts.get("pt.passes", 0) == (2 if kind == "mesh_cpu" else 0)
+    assert counts["pt.passes"] == 2
 
 
 def test_a_fresh_process_renders_shirley_without_loading_the_graph_module(
@@ -115,13 +115,13 @@ print("unloaded")
 def test_the_graph_module_counts_every_kernel_wrapper():
     """The launches a replay adds come from every ops.cuda wrapper with a
     `launches` count, the mesh pass's four among them."""
-    from pathtracer_tpu_torch import mesh_graph
+    from pathtracer_tpu_torch import graph
     from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
     from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
     from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
     from pathtracer_tpu_torch.ops.cuda import tri_kernel as tk
 
-    got = mesh_graph.kernel_wrappers()
+    got = graph.kernel_wrappers()
     assert {sk.intersect_spheres, tk.intersect_tris, bw.bvh8_walk,
             bw.bvh4_walk, ttk.intersect_tile_tris} <= got
     assert all(isinstance(f.launches, int) for f in got)

@@ -153,7 +153,7 @@ def test_renderer_bands_equal_whole_image(height, sp):
         lambda row0, band: Renderer(scene, cam, bg, W, height, 2, 4, CPU,
                                     tile_row0=row0, band_tile_rows=band),
         height, sp)
-    assert torch.equal(got, whole.untile(sums))
+    assert torch.equal(got, whole.image(sums))
     assert got_segs == int(segs) > W * height
 
 

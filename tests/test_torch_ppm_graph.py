@@ -1,4 +1,4 @@
-"""The photon mapper's CUDA-graph path (pathtracer_tpu_torch.ppm_graph) on
+"""The photon mapper's CUDA-graph path (pathtracer_tpu_torch.graph) on
 the CPU, where no graph is captured: the photon pass and the eye walk take
 their offsets as 0-dim int64 tensors (the graph's inputs) and give the int
 form's outputs, and the graph module stays out of every render that is not
@@ -25,7 +25,7 @@ sys.path.insert(0, ROOT)
 from tools.icosphere import icosphere  # noqa: E402
 
 CPU = torch.device("cpu")
-GRAPH_MODULE = "pathtracer_tpu_torch.ppm_graph"
+GRAPH_MODULE = "pathtracer_tpu_torch.graph"
 W = H = 32
 PHOTONS, BOUNCES = 1200, 3
 
@@ -91,7 +91,7 @@ def test_a_cpu_render_never_touches_the_graph_module(tmp_path, monkeypatch):
     PPMRenderer on the CPU renders twice and counts every iteration, none
     of them replayed, and opens no replay or capture span."""
     monkeypatch.setitem(sys.modules, GRAPH_MODULE, _Refuse())
-    monkeypatch.setattr(pathtracer_tpu_torch, "ppm_graph", _Refuse(),
+    monkeypatch.setattr(pathtracer_tpu_torch, "graph", _Refuse(),
                         raising=False)
     scene, cam, lights, mesh = _ganesha(tmp_path)
     rend = ppm.PPMRenderer(scene, cam, lights, W, H, iterations=2,

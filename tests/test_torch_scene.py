@@ -129,6 +129,6 @@ def test_renderer_tile_order(scenes):
     assert {"sph_table", "pack_table", "lists", "counts"} <= names
     planes = torch.arange(3 * 6 * 1024, dtype=torch.float32).reshape(
         3, -1, 128)
-    img = r.untile(planes)
+    img = r.image(planes)
     assert img.shape == (40, 70, 3)
     assert float(img[35, 69, 1]) == float(planes.reshape(3, -1)[1, i])

@@ -117,14 +117,11 @@ def test_hierarchy_holds_every_sphere_once(scene):
 
 
 def test_renderer_keeps_a_given_hierarchy_and_builds_none_on_the_cpu(
-        bounces, hier):
+        bounces):
     """The plain versions on the CPU do not read the hierarchy, so a CPU
-    Renderer builds none; one given to the constructor is the one used."""
+    Renderer builds none and keeps none."""
     r, _ = bounces
-    assert r.sphere_hierarchy() is None
-    sc, cam, bg = shirley.build(W / H, CPU)
-    given = Renderer(sc, cam, bg, W, H, 1, 8, CPU, sphere_bvh=hier)
-    assert given.sphere_hierarchy() is hier
+    assert r.sphere_hierarchy() is None and r._sphere_bvh is None
 
 
 @pytest.mark.parametrize("b", range(1, 8))

@@ -61,13 +61,18 @@ def test_sphere_live_lanes_sum_to_segments():
     """64x32, spp 2, 8 bounces: three bounces over every lane, then the
     compaction at bounce 3 and five bounces over the rows it keeps."""
     scene, cam, bg = shirley.build(2.0, CPU)
-    segments, rec = _last_render(make_render_fn(cam, bg, 64, 32, 2, 8, CPU),
-                                 scene)
+    render = make_render_fn(cam, bg, 64, 32, 2, 8, CPU)
+    segments, rec = _last_render(render, scene)
     lanes = 64 * 32  # whole tiles: 2 x 1 tiles of 1024 lanes
     assert rec.counts["pt.live_lanes"] == segments > 2 * 64 * 32
     assert 2 * 3 * lanes < rec.counts["pt.lanes"] < 2 * 8 * lanes
+    assert rec.counts["pt.passes"] == 2
     assert rec.total_ns["pt.compact"] > 0 and rec.total_ns["pt.sync"] > 0
+    assert rec.total_ns["pt.renderer_init"] > 0
     assert not rec.intervals
+    # the renderer is kept for the same scene: no set-up the second time
+    segments2, rec2 = _last_render(render, scene)
+    assert segments2 == segments and "pt.renderer_init" not in rec2.total_ns
 
 
 def test_sphere_pass_with_every_lane_dead_ends_at_the_compaction():
@@ -171,10 +176,12 @@ def _annotations(prof):
 def test_annotations_lie_inside_their_intervals():
     """A CPU profiler over one render of 32x32, spp 1, 4 bounces (the
     compaction at bounce 3): every pt.* range the profiler recorded is
-    one of the render's intervals, the n-th of a name inside the n-th."""
+    one of the render's intervals, the n-th of a name inside the n-th.
+    An earlier render of another scene object warms the process up; the
+    profiled one builds its own renderer."""
     scene, cam, bg = shirley.build(2.0, CPU)
     render = make_render_fn(cam, bg, 32, 32, 1, 4, CPU)
-    render(scene)
+    render(shirley.build(2.0, CPU)[0])
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         render(scene)
     rec = tracing.images()[-1]
