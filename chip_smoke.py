@@ -123,8 +123,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
      the floor and the mesh), with steps per lane from the plain version's
      count_steps, its times and bound; intersect_spheres and
      intersect_tris against their plain versions on the bounce-1 rays;
+     winner_t and mesh_bounce against their plain version (composite_hits
+     after the mesh query, scatter_bounce) at bounces 0, 1 and 3 of pass
+     0 (mesh_bounce_kernel.plain_bounces and bounce_equal: torch.equal on
+     t_cur, org, d, attn, rad and alive, segments the live lanes), each
+     with its warm and L2-flushed ms, device ms and bound by bytes;
      then `600x600 spp=8 b=8` through make_render_fn(..., mesh=mesh): the
-     four kernels' launch counts (64, 64, 56, 8), the live lanes of each
+     six kernels' launch counts (intersect_spheres, intersect_tris,
+     bvh8_walk, intersect_tile_tris, winner_t, mesh_bounce: 64, 64, 56, 8,
+     64, 64), the live lanes of each
      bounce of pass 0, the segments within 0.1% of the reference's
      (scenes/ref_ganesha_pt_600x600_spp8_b8.npz, JAX on the CPU; the TPU's
      count printed beside), the image's RMSE and 8x8-binned RMSE as shares
@@ -291,6 +298,8 @@ PT_SEGMENT_SLACK = 1e-3  # segments, relative to the reference's
 GANESHA_PT_RMSE_SHARE = 2e-2
 GANESHA_PT_BINNED_SHARE = 5e-3
 PT_WALK_BOUNCES = (1, 3)  # bounces whose walk is held to its plain version
+# bounces whose mesh_bounce and winner_t are held to their plain version
+PT_BOUNCE_CHECKS = (0, 1, 3)
 PT_WARM_RENDERS = 3
 # phase 16: a seeded shirley scene other than the manifest's (seed 7's own
 # list, 530 spheres) and the 16-bounce chain of the HQ configuration, each
@@ -426,17 +435,23 @@ def time_ms(torch, fn, reps: int = 7, batch: int = 10) -> float:
     return statistics.median(times)
 
 
-def time_cold_ms(torch, fn, reps: int = 7) -> float:
+def time_cold_ms(torch, fn, reps: int = 7, prepare=lambda: None,
+                 cold: bool = True) -> float:
     """Median CUDA-event ms of one call of fn with the L2 cache flushed
-    before it: a 256 MB fill, then a ~2 ms device sleep that holds the
-    stream while the host enqueues fn, so the events time fn's kernels
-    alone, not the host's launch cost."""
+    before it (a 256 MB fill; cold=False leaves it warm), then a ~2 ms
+    device sleep that holds the stream while the host enqueues fn, so the
+    events time fn's kernels alone, not the host's launch cost. prepare()
+    runs before the flush, outside the timed window: a kernel that updates
+    its inputs in place restores them there."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    prepare()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        prepare()
+        if cold:
+            flush.zero_()
         torch.cuda._sleep(4_000_000)  # cycles: ~2 ms at the H100's clocks
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -636,12 +651,13 @@ def read_no_path(path: str, launches: dict) -> None:
 
 
 def path_kernels() -> dict:
-    """The launch-counted wrappers of the seven kernels on the
+    """The launch-counted wrappers of the nine kernels on the
     multi-device paths (phase 14), by name."""
     from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bwk
     from pathtracer_tpu_torch.ops.cuda import compact_kernel as ck
     from pathtracer_tpu_torch.ops.cuda import fused_bounce_kernel as fbk
     from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
+    from pathtracer_tpu_torch.ops.cuda import mesh_bounce_kernel as mbk
     from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
     from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
     from pathtracer_tpu_torch.ops.cuda import tri_kernel as tk
@@ -651,7 +667,8 @@ def path_kernels() -> dict:
             "intersect_tris": tk.intersect_tris,
             "gather_flux_chunks": gk.gather_flux_chunks,
             "intersect_tile_tris": ttk.intersect_tile_tris,
-            "bvh8_walk": bwk.bvh8_walk}
+            "bvh8_walk": bwk.bvh8_walk, "winner_t": mbk.winner_t,
+            "mesh_bounce": mbk.mesh_bounce}
 
 
 def counted(torch, dev, fn):
@@ -1687,7 +1704,7 @@ def mesh_phases(torch, np, dev, smi):
     """Phases 9-13: the ganesha mesh, its two kernels against their plain
     versions, the ganesha render and its CLIs, the path-traced ganesha.
     Returns (kernel JSON entries without launches, launch counts of the
-    ganesha render's five kernels, of the path-traced render's four, and
+    ganesha render's five kernels, of the path-traced render's six, and
     phase 13's numbers for the JSON entries)."""
     rend, kernels = mesh_kernel_phases(torch, np, dev)
     launches = ganesha_phases(torch, np, smi, rend)
@@ -1974,12 +1991,13 @@ def ganesha_phases(torch, np, smi, rend):
 def ganesha_pt_phases(torch, np, smi, ppm_rend):
     """Phase 13: the path-traced ganesha (models.ganesha.build_pt's scene)
     on phase 9's floor, camera and MeshBVH under the shirley sky. Returns
-    (the render's launch counts of its four kernels, the numbers the
+    (the render's launch counts of its six kernels, the numbers the
     kernels' JSON entries take from this phase)."""
     from pathtracer_tpu_torch.integrator import MeshRenderer, make_render_fn
     from pathtracer_tpu_torch.io.png import write_png
     from pathtracer_tpu_torch.models import shirley
     from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+    from pathtracer_tpu_torch.ops.cuda import mesh_bounce_kernel as mbk
     from pathtracer_tpu_torch.ops.cuda import sphere_kernel as sk
     from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
     from pathtracer_tpu_torch.ops.cuda import tri_kernel as tk
@@ -2066,6 +2084,11 @@ def ganesha_pt_phases(torch, np, smi, ppm_rend):
         bound_ms=f"{t_bound['bound_ms']:.4f}",
         bound_by=t_bound["bound_by"])[1], t_bound["bound_ms"])
 
+    # the bounce kernels against their plain version on pass 0's bounces
+    for c in mbk.plain_bounces(r, max(PT_BOUNCE_CHECKS) + 1):
+        if c["b"] in PT_BOUNCE_CHECKS:
+            pt[f"bounce_b{c['b']}"] = mesh_bounce_check(torch, r, c)
+
     # --- the render through make_render_fn(..., mesh=mesh) ----------------
     render = make_render_fn(cam, bg, size, size, spp, bounces, dev,
                             mesh=mesh)
@@ -2078,6 +2101,7 @@ def ganesha_pt_phases(torch, np, smi, ppm_rend):
                 "intersect_tris": tk.intersect_tris,
                 "bvh8_walk": bw.bvh8_walk,
                 "intersect_tile_tris": ttk.intersect_tile_tris,
+                "winner_t": mbk.winner_t, "mesh_bounce": mbk.mesh_bounce,
                 **no_path_kernels()}
     for fn in counters.values():
         fn.launches = 0
@@ -2108,7 +2132,8 @@ def ganesha_pt_phases(torch, np, smi, ppm_rend):
     want_launches = {"intersect_spheres": spp * bounces,
                      "intersect_tris": spp * bounces,
                      "bvh8_walk": spp * (bounces - 1),
-                     "intersect_tile_tris": spp}
+                     "intersect_tile_tris": spp,
+                     "winner_t": spp * bounces, "mesh_bounce": spp * bounces}
     wall_s = statistics.median(walls)
     MESH_WALLS["ganesha_pt"] = dict(first_render_s=first_s, wall_s=wall_s)
     os.makedirs(OUT, exist_ok=True)
@@ -2181,6 +2206,84 @@ def ganesha_pt_phases(torch, np, smi, ppm_rend):
               walk_render_ms=kernel_ms(per, "bvh8_walk_kernel"),
               walk_ms_by_bounce=by_bounce)
     return launches, pt
+
+
+def mesh_bounce_check(torch, r, c) -> dict:
+    """Phase 13's check of the bounce kernels on c, one bounce of
+    mesh_bounce_kernel.plain_bounces(r, ...) over the path-traced pass 0:
+    winner_t and mesh_bounce equal to their plain version on every output
+    (bounce_equal), then each kernel's ms (CUDA events around one launch
+    behind a device sleep, L2 warm), device ms (profiler, L2 warm: the
+    mean of the launches it recorded, as late in a long process it may
+    miss some or all of a window's), L2-flushed ms (time_cold_ms) and
+    bound, and the plain version's ms (composite_hits after the query,
+    scatter_bounce).
+    mesh_bounce runs on copies of the lanes, restored before each launch
+    outside the timed window. Prints the phase line; returns the numbers of
+    the kernels' JSON entries."""
+    from pathtracer_tpu_torch import integrator as it
+    from pathtracer_tpu_torch.ops.cuda import mesh_bounce_kernel as mbk
+
+    b, pools, hits, offset = c["b"], c["pools"], c["hits"], c["offset"]
+    org, d, _, _, alive = c["lanes"]
+    equal = mbk.bounce_equal(r, c)
+    lanes = [x.clone() for x in c["lanes"]]
+    segs = torch.zeros((), dtype=torch.int64, device=org.device)
+
+    def restore():
+        for g, x in zip(lanes, c["lanes"]):
+            g.copy_(x)
+
+    def bounce():
+        mbk.mesh_bounce(r.scene, r.mesh, pools, hits, c["limbs"], offset,
+                        r.sky_colors, *lanes, segs)
+
+    def winner():
+        mbk.winner_t(r.scene, pools, org, d)
+
+    sky = tuple(x.expand_as(org) for x in r.sky_colors)
+
+    def plain():
+        h = it.composite_hits(r.scene, r.mesh, pools, org, d,
+                              lambda t_cur: hits)
+        return it.scatter_bounce(h, r.sampler, b, offset, sky, *c["lanes"])
+
+    # bytes each must move: winner_t reads every lane's org, d and the
+    # pools' at, idx, inv_a, t_t and writes t_cur (44 B); mesh_bounce reads
+    # every lane's alive byte, a live lane's state, offset and winners
+    # (81 B) and a mesh winner's 36 B row, and writes a miss's radiance and
+    # death (13 B), a continuing lane's org, d and attn (36 B) and an ended
+    # hit's death (1 B)
+    n, live = org.shape[0], int(alive.sum())
+    ends, going = c["ends"], int(c["want"][4].sum())
+    bounds = {"winner_t": bound(44 * n, 0), "mesh_bounce": bound(
+        n + 81 * live + 36 * ends["mesh"] + 13 * ends["sky"] + 36 * going
+        + (live - ends["sky"] - going), 0)}
+    out = {"plain_ms": time_ms(torch, plain, reps=3, batch=2)}
+    for name, fn, prep in (("winner_t", winner, lambda: None),
+                           ("mesh_bounce", bounce, restore)):
+        with profiler() as prof:
+            for _ in range(5):
+                prep()
+                fn()
+            torch.cuda.synchronize()
+        seen = launch_ms(prof, f"{name}_kernel")
+        out[name] = dict(
+            ms=time_cold_ms(torch, fn, prepare=prep, cold=False),
+            device_ms=statistics.mean(seen) if seen else None,
+            device_launches_seen=len(seen),
+            device_ms_cold_l2=time_cold_ms(torch, fn, prepare=prep),
+            bound_ms=bounds[name]["bound_ms"])
+    phase("mesh_bounce_pt", shape=f"pt_b{b}:{n}_lanes", live=live,
+          **ends, continuing=going, equal=json.dumps(equal),
+          plain_ms=f"{out['plain_ms']:.4f}",
+          **{f"{name}_{k}": "not_seen" if v is None else (
+              v if isinstance(v, int) else f"{v:.4f}")
+             for name in ("winner_t", "mesh_bounce")
+             for k, v in out[name].items()})
+    require(all(equal.values()), f"mesh_bounce (path-traced bounce {b}): "
+            f"the kernels differ from their plain version: {equal}")
+    return out
 
 
 def eye_witness(torch, np, rend):
@@ -2804,7 +2907,9 @@ def bvh4_phases(torch, np, dev, smi, rend):
     want_pt.update(intersect_spheres=PT_SPP * PT_BOUNCES,
                    intersect_tris=PT_SPP * PT_BOUNCES,
                    bvh4_walk=PT_SPP * (PT_BOUNCES - 1),
-                   intersect_tile_tris=PT_SPP)
+                   intersect_tile_tris=PT_SPP,
+                   winner_t=PT_SPP * PT_BOUNCES,
+                   mesh_bounce=PT_SPP * PT_BOUNCES)
     fields, launches = pt_render_gates(
         torch, np, dev, make_render_fn(cam, bg, PT_SIZE, PT_SIZE, PT_SPP,
                                        PT_BOUNCES, dev, mesh=mesh),
@@ -3523,13 +3628,30 @@ def main() -> None:
     # renders, summed): launches is the sum of its one-process paths' runs,
     # each read on its own; launches_by_path holds every path's count,
     # phase 14's too. The path-traced render's numbers join the entries of
-    # its four kernels
+    # its six kernels
     paths = {"shirley": launches, "cornell": ppm_launches,
              "ganesha": mesh_launches, "ganesha_pt": pt_launches,
              **bvh4_launches, **seed_launches}
     multi = {"multi_device": md_launches,
              "multi_device_ranks": md_rank_launches}
     mesh_kernels.append(bvh4_kernel)
+    # the mesh path tracer's bounce kernels on phase 13's pass 0: bounce 1
+    # as ms, the other bounces beside it; plain_ms is the pair's plain
+    # version (composite_hits after the query, scatter_bounce). They
+    # replace no TPU kernel: the JAX trace's composite tier is XLA glue
+    for name in ("mesh_bounce", "winner_t"):
+        at = {b: pt[f"bounce_b{b}"][name] for b in PT_BOUNCE_CHECKS}
+        k = entry(name, "mesh_bounce.cu", "", 0.0, at[1]["ms"],
+                  pt["bounce_b1"]["plain_ms"], bound_ms=at[1]["bound_ms"],
+                  bound_by="bytes", device_ms=at[1]["device_ms"],
+                  device_ms_cold_l2=at[1]["device_ms_cold_l2"],
+                  shape="ganesha_pt pass 0 bounce 1, 365568 lanes",
+                  **{f"{key}_b{b}": v for b in PT_BOUNCE_CHECKS if b != 1
+                     for key, v in at[b].items()},
+                  **{f"plain_ms_b{b}": pt[f"bounce_b{b}"]["plain_ms"]
+                     for b in PT_BOUNCE_CHECKS if b != 1})
+        k["replaces"] = "pathtracer_tpu/integrator.py:212 (trace, XLA)"
+        mesh_kernels.append(k)
     for k in kernels + ppm_kernels + mesh_kernels:
         by_path = {p: counts[k["name"]] for p, counts in paths.items()
                    if k["name"] in counts}
@@ -3598,7 +3720,7 @@ def main() -> None:
     require(all(n == 0 for counts in NO_PATH_LAUNCHES.values()
                 for n in counts.values()),
             f"a render launched a kernel of no path: {NO_PATH_LAUNCHES}")
-    require(len(kernels) == 12, f"{len(kernels)} kernels in the JSON line")
+    require(len(kernels) == 14, f"{len(kernels)} kernels in the JSON line")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -61,6 +61,8 @@ _SIGNATURES = {
     "pt_intersect_clustered": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                                _P, _P, _I, _P],
     "pt_gather_flux": [_P, _P, _P, _P, _I, _F, _P, _I, _P, _I, _P],
+    "pt_winner_t": [_P] * 10 + [_I, _P],
+    "pt_mesh_bounce": [_P] * 13 + [_I] + [_P] * 8 + [_U] * 4 + [_P, _I, _P],
 }
 
 _lib = None

@@ -2,8 +2,8 @@
 scenes, and the composite sphere + triangle intersector of both the path
 tracer's mesh scenes and the photon mapper.
 
-Port of pathtracer_tpu/integrator.py: make_intersector (with its mesh
-branch; without the onehot select), the tiled pass (make_pass_fn's
+Port of pathtracer_tpu/integrator.py: make_intersector (Intersector, with
+its mesh branch; without the onehot select), the tiled pass (make_pass_fn's
 32x32-tile-major ray order), the kernel wavefront (_trace_pallas2), the
 composite mesh wavefront (trace), the bounce-0 per-tile sphere lists
 (tile_sphere_lists, a numpy copy) and the render driver (make_render_fn,
@@ -32,12 +32,16 @@ rounded up to a multiple of 8 (one 1024-ray block). Rows past the live count
 are dead after pack_rows, so the cut is exact.
 
 A scene with a triangle mesh (ops.bvh.MeshBVH; the path-traced ganesha)
-takes the JAX composite tier instead: every bounce is make_intersector
+takes the JAX composite tier instead: every bounce is the Intersector
 (the sphere and triangle pool kernels, the BVH8 walk kernel capped at the
-pools' winner t), the sky on a miss, then shading.scatter, eager tensor
-ops over (N, 3) rays. Bounce 0 meets the mesh through the tile-culled
-triangle kernel. Not ported: the PT mesh compaction ladder (measured
-neutral in the JAX package, off by default there).
+pools' winner t), the sky on a miss, then shading.scatter, over (N, 3)
+rays. Bounce 0 meets the mesh through the tile-culled triangle kernel. On
+a card the pools' winner t and all of a bounce after the mesh query are
+the two kernels of ops/cuda/mesh_bounce_kernel.py; their plain version,
+which the CPU runs, is the eager code of trace_plain (composite_hits,
+scatter_bounce), which the photon mapper's hit_setup shares. Not ported:
+the PT mesh compaction ladder (measured neutral in the JAX package, off by
+default there).
 """
 
 from __future__ import annotations
@@ -67,9 +71,10 @@ from .scene import (TRI_A, TRI_E1, TRI_E2, TRI_MAT, TRI_TEX, Scene,
                     eval_texture)
 from .utils import tracing
 
-__all__ = ["make_intersector", "TILE", "tile_sphere_lists", "initial_state",
-           "trace_wavefront", "Renderer", "trace", "MeshRenderer",
-           "renderer_per_scene", "make_render_fn"]
+__all__ = ["Intersector", "composite_hits", "TILE",
+           "tile_sphere_lists", "initial_state", "trace_wavefront",
+           "Renderer", "trace", "trace_plain", "scatter_bounce",
+           "MeshRenderer", "renderer_per_scene", "make_render_fn"]
 
 _f32 = lambda x: float(np.float32(x))
 _PI = _f32(np.pi)
@@ -77,13 +82,13 @@ _TWO_PI_INV = _f32(0.5 / np.pi)
 _PI_INV = _f32(1.0 / np.pi)
 
 
-def make_intersector(scene: Scene, mesh=None, mesh_intersect=None):
-    """Build hit_setup(org, d, alive) -> dict of per-lane hit attributes
-    over both pools of a mixed scene, the nearest sphere (intersect_spheres)
-    and the nearest triangle (intersect_tris), and over an optional
-    triangle mesh (ops.bvh.MeshBVH): the nearest of them, and every shading
-    input (point, flipped normal, uv, material columns) by masked selects.
-    org, d (N, 3) f32 with N a multiple of 1024; alive (N,) bool drives the
+class Intersector:
+    """hit_setup(org, d, alive) -> dict of per-lane hit attributes over
+    both pools of a mixed scene, the nearest sphere (intersect_spheres) and
+    the nearest triangle (intersect_tris), and over an optional triangle
+    mesh (ops.bvh.MeshBVH): the nearest of them, and every shading input
+    (point, flipped normal, uv, material columns) by masked selects. org,
+    d (N, 3) f32 with N a multiple of 1024; alive (N,) bool drives the
     kernels' block early exit.
 
     The mesh walk (MeshBVH.intersect, the BVH8 or BVH4 walk kernel) is
@@ -95,109 +100,143 @@ def make_intersector(scene: Scene, mesh=None, mesh_intersect=None):
     the barycentric a + u e1 + v e2, its tex coords are (v, u + v) and its
     material the mesh's row.
 
-    Returns dict(hit, t, point, normal, hit_front, albedo, mat_kind, ior,
-    ior_inv). The uv of a sphere hit uses torch.acos / torch.atan2, the
-    library functions of the JAX code (not the polynomials of the path
-    tracer's kernel)."""
-    sph_table = pack_spheres(scene.center, scene.radius, scene.valid)
-    has_tris = scene.tri_count > 0
-    if has_tris:
-        tp = scene.tri_pack
-        tri_table = pack_tris(tp[:, TRI_A], tp[:, TRI_E1], tp[:, TRI_E2],
-                              scene.tri_valid)
+    hit_setup returns dict(hit, t, point, normal, hit_front, albedo,
+    mat_kind, ior, ior_inv). The uv of a sphere hit uses torch.acos /
+    torch.atan2, the library functions of the JAX code (not the
+    polynomials of the path tracer's kernel). It runs in two stages, which
+    the mesh path tracer's kernels take apart (trace): `pools`, the sphere
+    and triangle pool kernels, then composite_hits, the eager combine,
+    which calls `query` (the walk or mesh_intersect) at the pools' winner
+    t. It holds the scene, the mesh (or None) and the pools' packed
+    tables, and no renderer."""
+
+    def __init__(self, scene: Scene, mesh=None, mesh_intersect=None):
+        self.scene, self.mesh = scene, mesh
+        self.mesh_intersect = mesh_intersect
+        self.sph_table = pack_spheres(scene.center, scene.radius, scene.valid)
+        self.tri_table = None
+        if scene.tri_count > 0:
+            tp = scene.tri_pack
+            self.tri_table = pack_tris(tp[:, TRI_A], tp[:, TRI_E1],
+                                       tp[:, TRI_E2], scene.tri_valid)
+
+    def pools(self, org, d, alive):
+        """(at, idx_s, hit_s, inv_a, t_t, idx_t, hit_t): intersect_spheres'
+        nearest sphere and intersect_tris' nearest triangle of each ray;
+        the last three are None without a triangle pool."""
+        at, idx_s, hit_s, inv_a = intersect_spheres(self.sph_table, org, d,
+                                                    alive)
+        tris = (None, None, None)
+        if self.tri_table is not None:
+            tris = intersect_tris(self.tri_table, org, d, alive)
+        return (at, idx_s, hit_s, inv_a, *tris)
+
+    def query(self, org, d, t_cur, alive):
+        """The mesh's (t, u, v, idx, hit): mesh_intersect's, or the walk's
+        capped at t_cur (the pools' winner t)."""
+        if self.mesh_intersect is not None:
+            with tracing.span("pt.tile"):
+                return self.mesh_intersect(org, d, alive)
+        with tracing.span("pt.walk"):
+            return self.mesh.intersect(org, d, t_cur, alive)
+
+    def __call__(self, org, d, alive):
+        return composite_hits(self.scene, self.mesh, self.pools(org, d, alive),
+                              org, d, lambda t_cur: self.query(org, d, t_cur,
+                                                               alive))
+
+
+
+def composite_hits(scene: Scene, mesh, pools, org, d, query):
+    """hit_setup's combine, eager: the nearest of the pools' winners
+    (Intersector.pools' outputs) and, with a mesh, of query(t_cur), the
+    mesh's (t, u, v, idx, hit) capped at the pools' winner t, and every
+    shading input of the winner. The plain version of the mesh path
+    tracer's two kernels (ops/cuda/mesh_bounce_kernel.py): winner_t is the
+    t_cur it passes to query, mesh_bounce's selects are the rest."""
+    at, idx_s, hit_s, inv_a, t_t, idx_t, hit_t = pools
+    has_tris = t_t is not None
     has_mesh = mesh is not None
+    pk_rows = scene.shade_pack[idx_s.long()]
+    # stable per-ray t from the winner's parameters
+    r_h = pk_rows[:, 3]
+    t_s = stable_t(pk_rows[:, 0:3], r_h * r_h, org, d, vec.quadrance(d),
+                   inv_a)
+    if has_tris:
+        tri_rows = scene.tri_pack[idx_t.long()]
+        use_tri = hit_t & (~hit_s | (t_t < t_s))
+        hit = hit_s | hit_t
+    else:
+        use_tri = torch.zeros_like(hit_s)
+        hit = hit_s
+    if has_mesh:
+        t_cur = torch.where(hit, torch.where(use_tri, t_t, t_s)
+                            if has_tris else t_s, BIG)
+        t_m, u_m, v_m, idx_m, hit_m = query(t_cur)
+        use_mesh = hit_m & (t_m < t_cur)
+        use_tri = use_tri & ~use_mesh
+        hit = hit | hit_m
 
-    def hit_setup(org, d, alive):
-        at, idx_s, hit_s, inv_a = intersect_spheres(sph_table, org, d, alive)
-        pk_rows = scene.shade_pack[idx_s.long()]
-        # stable per-ray t from the winner's parameters
-        r_h = pk_rows[:, 3]
-        t_s = stable_t(pk_rows[:, 0:3], r_h * r_h, org, d, vec.quadrance(d),
-                       inv_a)
-        if has_tris:
-            t_t, idx_t, hit_t = intersect_tris(tri_table, org, d, alive)
-            tri_rows = scene.tri_pack[idx_t.long()]
-            use_tri = hit_t & (~hit_s | (t_t < t_s))
-            hit = hit_s | hit_t
-        else:
-            use_tri = torch.zeros_like(hit_s)
-            hit = hit_s
-        if has_mesh:
-            t_cur = torch.where(hit, torch.where(use_tri, t_t, t_s)
-                                if has_tris else t_s, BIG)
-            if mesh_intersect is not None:
-                with tracing.span("pt.tile"):
-                    t_m, u_m, v_m, idx_m, hit_m = mesh_intersect(org, d,
-                                                                 alive)
-            else:
-                with tracing.span("pt.walk"):
-                    t_m, u_m, v_m, idx_m, hit_m = mesh.intersect(
-                        org, d, t_cur, alive)
-            use_mesh = hit_m & (t_m < t_cur)
-            use_tri = use_tri & ~use_mesh
-            hit = hit | hit_m
+    point_s = org + t_s[:, None] * d
+    n_s = vec.normalize(point_s - pk_rows[:, 0:3])
+    if has_tris:
+        a, e1, e2 = tri_rows[:, TRI_A], tri_rows[:, TRI_E1], \
+            tri_rows[:, TRI_E2]
+        _, u_b, v_b = mt_single(a, e1, e2, org, d)
+        # the hit point is the barycentric combination, not o + t*d
+        point_t = a + u_b[:, None] * e1 + v_b[:, None] * e2
+        n_t = vec.normalize(vec.cross(e1, e2))
+        point = vec.where3(use_tri, point_t, point_s)
+        g_normal = vec.where3(use_tri, n_t, n_s)
+        t = torch.where(use_tri, t_t, t_s)
+    else:
+        point, g_normal, t = point_s, n_s, t_s
+    if has_mesh:
+        # one gather, made row-major: the kernels of the next bounce
+        # take the hit point's layout as their rays' and want it dense
+        cols = mesh.tri_pack9[:, idx_m.long()].T.contiguous()  # (N, 9)
+        ma, me1, me2 = cols[:, 0:3], cols[:, 3:6], cols[:, 6:9]
+        point_m = ma + u_m[:, None] * me1 + v_m[:, None] * me2
+        n_m = vec.normalize(vec.cross(me1, me2))
+        point = vec.where3(use_mesh, point_m, point)
+        g_normal = vec.where3(use_mesh, n_m, g_normal)
+        t = torch.where(use_mesh, t_m, t)
 
-        point_s = org + t_s[:, None] * d
-        n_s = vec.normalize(point_s - pk_rows[:, 0:3])
-        if has_tris:
-            a, e1, e2 = tri_rows[:, TRI_A], tri_rows[:, TRI_E1], \
-                tri_rows[:, TRI_E2]
-            _, u_b, v_b = mt_single(a, e1, e2, org, d)
-            # the hit point is the barycentric combination, not o + t*d
-            point_t = a + u_b[:, None] * e1 + v_b[:, None] * e2
-            n_t = vec.normalize(vec.cross(e1, e2))
-            point = vec.where3(use_tri, point_t, point_s)
-            g_normal = vec.where3(use_tri, n_t, n_s)
-            t = torch.where(use_tri, t_t, t_s)
-        else:
-            point, g_normal, t = point_s, n_s, t_s
-        if has_mesh:
-            # one gather, made row-major: the kernels of the next bounce
-            # take the hit point's layout as their rays' and want it dense
-            cols = mesh.tri_pack9[:, idx_m.long()].T.contiguous()  # (N, 9)
-            ma, me1, me2 = cols[:, 0:3], cols[:, 3:6], cols[:, 6:9]
-            point_m = ma + u_m[:, None] * me1 + v_m[:, None] * me2
-            n_m = vec.normalize(vec.cross(me1, me2))
-            point = vec.where3(use_mesh, point_m, point)
-            g_normal = vec.where3(use_mesh, n_m, g_normal)
-            t = torch.where(use_mesh, t_m, t)
+    hit_front = vec.dot(d, g_normal) < 0.0
+    normal = vec.where3(hit_front, g_normal, -g_normal)
 
-        hit_front = vec.dot(d, g_normal) < 0.0
-        normal = vec.where3(hit_front, g_normal, -g_normal)
+    # sphere uv from the flipped normal
+    ny = torch.clamp(normal[:, 1], -1.0, 1.0)
+    theta = torch.acos(-ny)
+    phi = _PI + torch.atan2(-normal[:, 2], normal[:, 0])
+    u_tex = phi * _TWO_PI_INV
+    v_tex = theta * _PI_INV
+    mat_rows = pk_rows[:, 4:16]
+    if has_tris:
+        # triangle uv: barycentric interpolation of the tex coords
+        tx = tri_rows[:, TRI_TEX]
+        w_b = 1.0 - u_b - v_b
+        tri_u = tx[:, 0] * w_b + tx[:, 2] * u_b + tx[:, 4] * v_b
+        tri_v = tx[:, 1] * w_b + tx[:, 3] * u_b + tx[:, 5] * v_b
+        u_tex = torch.where(use_tri, tri_u, u_tex)
+        v_tex = torch.where(use_tri, tri_v, v_tex)
+        mat_rows = torch.where(use_tri[:, None], tri_rows[:, TRI_MAT],
+                               mat_rows)
+    if has_mesh:
+        # the mesh's fixed (t00, t01, t11) tex corners: tu = v, tv = u+v
+        u_tex = torch.where(use_mesh, v_m, u_tex)
+        v_tex = torch.where(use_mesh, u_m + v_m, v_tex)
+        mat_rows = torch.where(use_mesh[:, None], mesh.mat_row_t[None, :],
+                               mat_rows)
 
-        # sphere uv from the flipped normal
-        ny = torch.clamp(normal[:, 1], -1.0, 1.0)
-        theta = torch.acos(-ny)
-        phi = _PI + torch.atan2(-normal[:, 2], normal[:, 0])
-        u_tex = phi * _TWO_PI_INV
-        v_tex = theta * _PI_INV
-        mat_rows = pk_rows[:, 4:16]
-        if has_tris:
-            # triangle uv: barycentric interpolation of the tex coords
-            tx = tri_rows[:, TRI_TEX]
-            w_b = 1.0 - u_b - v_b
-            tri_u = tx[:, 0] * w_b + tx[:, 2] * u_b + tx[:, 4] * v_b
-            tri_v = tx[:, 1] * w_b + tx[:, 3] * u_b + tx[:, 5] * v_b
-            u_tex = torch.where(use_tri, tri_u, u_tex)
-            v_tex = torch.where(use_tri, tri_v, v_tex)
-            mat_rows = torch.where(use_tri[:, None], tri_rows[:, TRI_MAT],
-                                   mat_rows)
-        if has_mesh:
-            # the mesh's fixed (t00, t01, t11) tex corners: tu = v, tv = u+v
-            u_tex = torch.where(use_mesh, v_m, u_tex)
-            v_tex = torch.where(use_mesh, u_m + v_m, v_tex)
-            mat_rows = torch.where(use_mesh[:, None], mesh.mat_row_t[None, :],
-                                   mat_rows)
+    albedo = eval_texture(mat_rows[:, 1], mat_rows[:, 2:5],
+                          mat_rows[:, 5:8], mat_rows[:, 8],
+                          mat_rows[:, 9], u_tex, v_tex)
+    return dict(hit=hit, t=t, point=point, normal=normal,
+                hit_front=hit_front, albedo=albedo,
+                mat_kind=mat_rows[:, 0], ior=mat_rows[:, 10],
+                ior_inv=mat_rows[:, 11])
 
-        albedo = eval_texture(mat_rows[:, 1], mat_rows[:, 2:5],
-                              mat_rows[:, 5:8], mat_rows[:, 8],
-                              mat_rows[:, 9], u_tex, v_tex)
-        return dict(hit=hit, t=t, point=point, normal=normal,
-                    hit_front=hit_front, albedo=albedo,
-                    mat_kind=mat_rows[:, 0], ior=mat_rows[:, 10],
-                    ior_inv=mat_rows[:, 11])
-
-    return hit_setup
 
 TILE = 32  # pixels per side of an image tile in tiled ray order
 
@@ -524,21 +563,61 @@ class Renderer(_BandRenderer):
 def trace(sampler: Sampler, org, d, offset, max_bounces: int, sky_colors,
           alive0, hit_setup, hit_setup0=None):
     """Trace a wavefront of rays through a scene with an optional triangle
-    mesh to completion: the JAX trace's composite tier (make_intersector,
+    mesh to completion: the JAX trace's composite tier (Intersector,
     shading.scatter) over (N, 3) rays, N a multiple of 1024.
 
-    org, d (N, 3) f32; offset (N,) sample offsets; sky_colors the two
-    colours of a background of mode 1 as a (2, 3) f32 tensor on the rays'
-    device (MeshRenderer's buffer), which a miss sees as models.shirley.sky
-    computes it, without sky()'s upload of the colours at every bounce (a
-    CUDA graph cannot capture an upload); alive0 (N,) bool; hit_setup a
-    make_intersector of the scene and its mesh, hit_setup0 one that
-    replaces it at bounce 0 (the tile-culled kernel of origin-zero
-    primaries). Bounce b draws its two samples at dimensions 2 + 2b and
-    3 + 2b. Returns (radiance (N, 3), segments: the live lanes summed over
-    the bounces, a 0-dim int64 tensor on the device)."""
+    org, d (N, 3) f32; offset (N,) int64 sample offsets; sky_colors the
+    two colours of a background of mode 1 as a (2, 3) f32 tensor on the
+    rays' device (MeshRenderer's buffer), which a miss sees as
+    models.shirley.sky computes it, without sky()'s upload of the colours
+    at every bounce (a CUDA graph cannot capture an upload); alive0 (N,)
+    bool; hit_setup an Intersector of the scene and its mesh,
+    hit_setup0 one that replaces it at bounce 0 (the tile-culled kernel of
+    origin-zero primaries). Bounce b draws its two samples at dimensions
+    2 + 2b and 3 + 2b. Returns (radiance (N, 3), segments: the live lanes
+    summed over the bounces, a 0-dim int64 tensor on the device).
+
+    On a CUDA device each bounce's pools' winner t and all its work after
+    the mesh query are the kernels of ops/cuda/mesh_bounce_kernel.py
+    (loaded there and nowhere else), over lanes updated in place; on the
+    CPU it is trace_plain, their plain version, to the same radiance and
+    segments. Each bounce counts
+    pt.mesh_bounces, and pt.fused_bounces where the kernels ran it."""
+    if org.device.type == "cpu":
+        return trace_plain(sampler, org, d, offset, max_bounces, sky_colors,
+                           alive0, hit_setup, hit_setup0)
+    from .ops.cuda import mesh_bounce_kernel as mbk
     hit_setup0 = hit_setup if hit_setup0 is None else hit_setup0
-    sky_lo, sky_hi = (c.expand_as(org) for c in sky_colors)
+    # the lanes' state, updated in place by mesh_bounce
+    org, d, alive = org.clone(), d.clone(), alive0.clone()
+    attn = torch.ones_like(org)
+    rad = torch.zeros_like(org)
+    segments = torch.zeros((), dtype=torch.int64, device=org.device)
+    for bounce in range(max_bounces):
+        with tracing.span("pt.bounce"):
+            tracing.count("pt.lanes", org.shape[0])
+            tracing.count("pt.mesh_bounces", 1)
+            tracing.count("pt.fused_bounces", 1)
+            hs = hit_setup0 if bounce == 0 else hit_setup
+            with tracing.span("pt.intersect"):
+                pools = hs.pools(org, d, alive)
+                t_cur = mbk.winner_t(hs.scene, pools, org, d)
+                hits = hs.query(org, d, t_cur, alive)
+            with tracing.span("pt.scatter"):
+                mbk.mesh_bounce(hs.scene, hs.mesh, pools, hits,
+                                sampler.limbs(2 + 2 * bounce, 3 + 2 * bounce),
+                                offset, sky_colors, org, d, attn, rad, alive,
+                                segments)
+    return rad, segments
+
+
+def trace_plain(sampler: Sampler, org, d, offset, max_bounces: int,
+                sky_colors, alive0, hit_setup, hit_setup0=None):
+    """trace in eager PyTorch on any device: each bounce is hit_setup
+    (pools, composite_hits), then scatter_bounce; the plain version of
+    trace's kernel path, and trace itself on the CPU."""
+    hit_setup0 = hit_setup if hit_setup0 is None else hit_setup0
+    sky = tuple(c.expand_as(org) for c in sky_colors)
     alive = alive0
     attn = torch.ones_like(org)
     rad = torch.zeros_like(org)
@@ -546,31 +625,45 @@ def trace(sampler: Sampler, org, d, offset, max_bounces: int, sky_colors,
     for bounce in range(max_bounces):
         with tracing.span("pt.bounce"):
             tracing.count("pt.lanes", org.shape[0])
+            tracing.count("pt.mesh_bounces", 1)
             segments += alive.sum()
             with tracing.span("pt.intersect"):
                 h = (hit_setup0 if bounce == 0 else hit_setup)(org, d, alive)
             with tracing.span("pt.scatter"):
-                hit = h["hit"] & alive
-                miss = alive & ~hit
-                sky_d = vec.lerp(0.5 * (d[:, 1] + 1.0), sky_lo, sky_hi)
-                rad = rad + vec.where3(miss, attn * sky_d,
-                                       torch.zeros_like(rad))
-
-                q = shading.shader_quat(h["normal"])
-                omega_i = quat_ops.rotate(q, -d)
-                u = sampler.get(offset, 2 + 2 * bounce)
-                v = sampler.get(offset, 3 + 2 * bounce)
-                wo, attn_mult, ok = shading.scatter(
-                    h["mat_kind"], h["albedo"], h["ior"], h["ior_inv"],
-                    omega_i, h["hit_front"], u, v)
-                dir_world = quat_ops.rotate_inv(q, wo)
-                new_org = shading.world_ray(h["point"], dir_world)
-
-                alive = hit & ok
-                org = vec.where3(alive, new_org, org)
-                d = vec.where3(alive, dir_world, d)
-                attn = vec.where3(alive, attn * attn_mult, attn)
+                org, d, attn, rad, alive = scatter_bounce(
+                    h, sampler, bounce, offset, sky, org, d, attn, rad, alive)
     return rad, segments
+
+
+def scatter_bounce(h, sampler: Sampler, bounce: int, offset, sky, org, d,
+                   attn, rad, alive):
+    """The end of one bounce of trace_plain, eager, after hit_setup's `h`:
+    a live lane that misses adds attn times the sky (sky: the two colours
+    expanded to (N, 3)) and dies; a hit scatters by its material with the
+    bounce's two draws and moves the ray off the surface, or dies where
+    the scatter ends the path. Returns the new (org, d, attn, rad, alive).
+    The plain version of mesh_bounce's second half."""
+    sky_lo, sky_hi = sky
+    hit = h["hit"] & alive
+    miss = alive & ~hit
+    sky_d = vec.lerp(0.5 * (d[:, 1] + 1.0), sky_lo, sky_hi)
+    rad = rad + vec.where3(miss, attn * sky_d, torch.zeros_like(rad))
+
+    q = shading.shader_quat(h["normal"])
+    omega_i = quat_ops.rotate(q, -d)
+    u = sampler.get(offset, 2 + 2 * bounce)
+    v = sampler.get(offset, 3 + 2 * bounce)
+    wo, attn_mult, ok = shading.scatter(
+        h["mat_kind"], h["albedo"], h["ior"], h["ior_inv"], omega_i,
+        h["hit_front"], u, v)
+    dir_world = quat_ops.rotate_inv(q, wo)
+    new_org = shading.world_ray(h["point"], dir_world)
+
+    alive = hit & ok
+    org = vec.where3(alive, new_org, org)
+    d = vec.where3(alive, dir_world, d)
+    attn = vec.where3(alive, attn * attn_mult, attn)
+    return org, d, attn, rad, alive
 
 
 class MeshRenderer(_BandRenderer):
@@ -636,8 +729,8 @@ class MeshRenderer(_BandRenderer):
         # closures over tensors, not over the renderer: no reference cycle
         # keeps a dropped renderer, and its graph's pool, alive
         self.mesh_intersect0 = mesh_intersect0
-        self.hit_setup = make_intersector(scene, mesh)
-        self.hit_setup0 = make_intersector(scene, mesh, mesh_intersect0)
+        self.hit_setup = Intersector(scene, mesh)
+        self.hit_setup0 = Intersector(scene, mesh, mesh_intersect0)
         self._graph = None  # the pass's Replay, made at a pass on a card
 
     def primary(self, pass_idx):

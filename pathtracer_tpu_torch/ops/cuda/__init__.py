@@ -1,8 +1,12 @@
 """The port's CUDA kernels: one module per kernel family, each with the
 wrapper that launches the kernel for CUDA tensors, the plain PyTorch version
-that it runs for CPU tensors, and a `launches` count on the wrapper."""
+that it runs for CPU tensors, and a `launches` count on the wrapper. The
+exception is mesh_bounce_kernel, whose plain version is the eager code of
+integrator.trace_plain, which trace runs for CPU tensors."""
 
 from __future__ import annotations
+
+import sys
 
 
 def check_tensors(what: str, device, checks) -> None:
@@ -24,12 +28,18 @@ def check_tensors(what: str, device, checks) -> None:
 
 def kernel_wrappers() -> set:
     """Every kernel wrapper of this package: a function with a `launches`
-    count (what a CUDA graph's replay adds again)."""
+    count (what a CUDA graph's replay adds again), in the kernel modules
+    that the process has loaded. mesh_bounce_kernel loads only where the
+    mesh path tracer first runs on a card, and a module never loaded has
+    launched nothing."""
     from . import (bvh_walk_kernel, compact_kernel, fused_bounce_kernel,
                    gather_kernel, shade_kernel, sphere_kernel,
                    tile_tri_kernel, tri_kernel)
-    modules = (bvh_walk_kernel, compact_kernel, fused_bounce_kernel,
+    modules = [bvh_walk_kernel, compact_kernel, fused_bounce_kernel,
                gather_kernel, shade_kernel, sphere_kernel, tile_tri_kernel,
-               tri_kernel)
+               tri_kernel]
+    lazy = sys.modules.get(__name__ + ".mesh_bounce_kernel")
+    if lazy is not None:
+        modules.append(lazy)
     return {f for m in modules for f in vars(m).values()
             if callable(f) and hasattr(f, "launches")}

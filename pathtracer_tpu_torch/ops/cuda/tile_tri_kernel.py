@@ -9,7 +9,7 @@ MeshBVH is required), band_chunk_maps as band_tile_maps, lane_maps,
 and intersect_tile_tris_pallas as `intersect_tile_tris`, which launches
 csrc/intersect_tile_tris.cu for CUDA tensors and runs
 `intersect_tile_tris_plain` for CPU tensors.
-`intersect_band` gives its hits in make_intersector's mesh_intersect
+`intersect_band` gives its hits in integrator.Intersector's mesh_intersect
 contract, for both renderers.
 
 Primary rays start at the camera-space origin, so a 32x32 image tile's rays
@@ -378,7 +378,7 @@ intersect_tile_tris.launches = 0
 
 def intersect_band(tile, d, alive, width: int, rows: int):
     """The mesh hits of origin-zero primaries in raster lanes through
-    intersect_tile_tris, in make_intersector's mesh_intersect contract:
+    intersect_tile_tris, in integrator.Intersector's mesh_intersect contract:
     tile the (table, tile_chunk_start, tile_chunk_src) tensors; d (N, 3)
     f32 with N >= rows * width, rows a multiple of 32; alive (N,) bool.
     The band's lanes go through the kernel, the lanes past it read as

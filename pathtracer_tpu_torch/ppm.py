@@ -9,7 +9,7 @@ pools and an optional triangle mesh (ops.bvh.MeshBVH, the ganesha scene).
 Each iteration runs
 
   1. the photon pass: emission, then max_bounces bounces of the composite
-     intersector (integrator.make_intersector; a mesh rides its BVH8 walk
+     intersector (integrator.Intersector; a mesh rides its BVH8 walk
      kernel) and the scatter, with a fixed deposit slot per (bounce, lane)
      and Russian roulette by the albedo's largest component; on a group of
      ranks each traces its own lane range;
@@ -74,7 +74,7 @@ import torch
 import torch.distributed as dist
 
 from .camera import Camera
-from .integrator import make_intersector
+from .integrator import Intersector
 from .io.png import write_png
 from .ops import quat as quat_ops
 from .ops import shading, vec
@@ -228,7 +228,7 @@ def make_photon_pass(scene: Scene, lights, photon_count: int,
                          "not of whole 1024-lane blocks")
     dev = scene.center.device
     lane_ids = torch.arange(lo, hi, dtype=torch.int64, device=dev)
-    hit_setup = make_intersector(scene, mesh)
+    hit_setup = Intersector(scene, mesh)
     emitters = _emitters(lights, counts, starts, dev)
 
     def emit(offset_base):
@@ -397,7 +397,7 @@ def make_eye_pass(camera: Camera, width: int, height: int,
     inv_w, inv_h = _f32(1.0 / width), _f32(1.0 / height)
     inv_pc = _f32(1.0 / photon_count)
     normalizer = np.float32(1.0 - 2.0 / 3.0)
-    hit_setup = make_intersector(scene, mesh, mesh_intersect)
+    hit_setup = Intersector(scene, mesh, mesh_intersect)
 
     def primary(offset_base):
         """Bounce-0 eye rays: (offs, org, d, alive). Eye rays are not

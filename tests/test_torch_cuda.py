@@ -91,7 +91,8 @@ import pytest
 import torch
 
 from pathtracer_tpu_torch import ppm
-from pathtracer_tpu_torch.integrator import Renderer, make_render_fn
+from pathtracer_tpu_torch.integrator import (MeshRenderer, Renderer,
+                                             make_render_fn)
 from pathtracer_tpu_torch.models import cornell, shirley
 from pathtracer_tpu_torch.ops.cuda import compact_kernel as ck
 from pathtracer_tpu_torch.ops.cuda import fused_bounce_kernel as fbk
@@ -1533,3 +1534,97 @@ def test_new_wrappers_refuse_malformed_input(dev):
     with pytest.raises(ValueError):  # photons_t of the wrong height
         gk.gather_flux(org, org, ranges, ranges,
                        torch.zeros(9, 128, device=dev), 0.1)
+
+
+def _mesh_bounce_matches_plain(r, bounces):
+    """Hold winner_t and mesh_bounce to the plain bounce at each of the
+    first `bounces` bounces of pass 0 of MeshRenderer r
+    (mesh_bounce_kernel.plain_bounces, bounce_equal): t_cur, org, d, attn,
+    rad and alive equal, the segments the live lanes, one launch each.
+    Returns, per bounce, the live lanes that end on the floor, on the mesh
+    and in the sky, and the dead lanes."""
+    from pathtracer_tpu_torch.ops.cuda import mesh_bounce_kernel as mbk
+
+    seen = []
+    for c in mbk.plain_bounces(r, bounces):
+        launches = (mbk.winner_t.launches, mbk.mesh_bounce.launches)
+        equal = mbk.bounce_equal(r, c)
+        assert all(equal.values()), (c["b"], equal)
+        assert (mbk.winner_t.launches, mbk.mesh_bounce.launches) == (
+            launches[0] + 1, launches[1] + 1)
+        seen.append(c["ends"])
+    return seen
+
+
+@pytest.mark.parametrize("yaw_seed", [None, 5])
+def test_mesh_bounce_kernels_match_plain(dev, tmp_path, yaw_seed):
+    """The two bounce kernels of the mesh path tracer against their plain
+    version on every bounce of a 60x60 pass over the tiny ganesha
+    (turned by the seed): bounce 0 after the tile kernel, bounces 1-3
+    after the walk; torch.equal on t_cur, org, d, attn, rad and alive, the
+    segments equal the live lanes. Every bounce has dead lanes (60x60
+    pads 3,600 lanes to 4,096), and lanes that end on the floor, on the
+    mesh and in the sky."""
+    scene, cam, bg, mesh = _tiny_ganesha_pt(dev, tmp_path, yaw_seed)
+    r = MeshRenderer(scene, cam, bg, 60, 60, 1, 4, dev, mesh)
+    seen = _mesh_bounce_matches_plain(r, 4)
+    assert all(min(s.values()) > 0 for s in seen), seen
+
+
+@pytest.mark.parametrize("seed", [1, 2 ** 31 + 7])
+def test_mesh_pass_kernels_equal_the_plain_passes(dev, tmp_path, seed,
+                                                  monkeypatch):
+    """A MeshRenderer's band_sums at 60x60, spp 4, 8 bounces over the tiny
+    ganesha turned by the seed (the kernels; each pass after the first a
+    replayed graph) equal the sums and segments of the same passes traced
+    by trace_plain, eagerly, bit for bit. The render counts pt.mesh_bounces
+    and pt.fused_bounces spp * 8 each."""
+    from pathtracer_tpu_torch import integrator as it
+    from pathtracer_tpu_torch.integrator import MeshRenderer
+    from pathtracer_tpu_torch.ops.cuda import mesh_bounce_kernel as mbk
+    from pathtracer_tpu_torch.utils import tracing
+
+    scene, cam, bg, mesh = _tiny_ganesha_pt(dev, tmp_path, seed)
+    r = MeshRenderer(scene, cam, bg, 60, 60, 4, 8, dev, mesh)
+    mbk.mesh_bounce.launches = mbk.winner_t.launches = 0
+    tracing.reset()
+    try:
+        with tracing.span(tracing.ROOT):
+            sums, segs = r.band_sums(range(4))
+        counts = tracing.images()[-1].counts
+    finally:
+        tracing.reset()
+    assert mbk.mesh_bounce.launches == mbk.winner_t.launches == 32
+    assert counts["pt.mesh_bounces"] == counts["pt.fused_bounces"] == 32
+    monkeypatch.setattr(it, "trace", it.trace_plain)
+    want = torch.zeros_like(sums)
+    want_segs = torch.zeros_like(segs)
+    for p in range(4):
+        rad, s = r.trace_pass(p)
+        want += rad
+        want_segs += s
+    assert mbk.mesh_bounce.launches == 32
+    assert torch.equal(sums, want) and int(segs) == int(want_segs) > 3600
+
+
+def test_mesh_bounce_wrappers_refuse_malformed_input(dev, tmp_path):
+    from pathtracer_tpu_torch.ops.cuda import mesh_bounce_kernel as mbk
+
+    scene, cam, bg, mesh = _tiny_ganesha_pt(dev, tmp_path)
+    r = MeshRenderer(scene, cam, bg, 32, 32, 1, 2, dev, mesh)
+    offset, org, d, alive = r.primary(0)
+    pools = r.hit_setup.pools(org, d, alive)
+    with pytest.raises(ValueError, match="idx_s"):  # int64 sphere index
+        mbk.winner_t(scene, (pools[0], pools[1].long(), *pools[2:]), org, d)
+    t_cur = mbk.winner_t(scene, pools, org, d)
+    hits = r.hit_setup.query(org, d, t_cur, alive)
+    lanes = (org.clone(), d.clone(), torch.ones_like(org),
+             torch.zeros_like(org))
+    segs = torch.zeros((), dtype=torch.int64, device=dev)
+    args = (scene, mesh, pools, hits, r.sampler.limbs(2, 3))
+    with pytest.raises(ValueError, match="offset"):  # int32 offsets
+        mbk.mesh_bounce(*args, offset.int(), r.sky_colors, *lanes,
+                        alive.clone(), segs)
+    with pytest.raises(ValueError, match="alive"):  # a float alive
+        mbk.mesh_bounce(*args, offset, r.sky_colors, *lanes, alive.float(),
+                        segs)

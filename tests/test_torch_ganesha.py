@@ -27,7 +27,7 @@ from pathtracer_tpu.io import ply as jply
 from pathtracer_tpu.models import ganesha as jganesha
 from pathtracer_tpu.ppm import PPMRenderer as JPPMRenderer
 from pathtracer_tpu_torch import cli
-from pathtracer_tpu_torch.integrator import make_intersector
+from pathtracer_tpu_torch.integrator import Intersector
 from pathtracer_tpu_torch.models import ganesha
 from pathtracer_tpu_torch.ops.cuda import gather_kernel as gk
 from pathtracer_tpu_torch.ops.cuda import tile_tri_kernel as ttk
@@ -98,12 +98,12 @@ def test_tiny_ganesha_photon_pass_matches_jax(tiny_ply, jax_render):
 def test_mesh_intersector_gives_dense_rays(tiny_ply):
     """The photon pass feeds a bounce's hit points and directions to the
     next bounce's kernels, which take only row-major (N, 3) rays: the mesh
-    branch of make_intersector must keep them dense, and a lane the mesh
+    branch of Intersector must keep them dense, and a lane the mesh
     wins takes the walk's t."""
     scene, _, lights, mesh = ganesha.build(tiny_ply, 1.0, CPU)
     trace, _, _ = make_photon_pass(scene, lights, 1000, 2, mesh)
     _, org, d, _, alive = trace.emit(0)
-    h = make_intersector(scene, mesh)(org, d, alive)
+    h = Intersector(scene, mesh)(org, d, alive)
     for name in ("point", "normal", "albedo"):
         assert h[name].is_contiguous(), name
     t_m = mesh.intersect(org, d, torch.full_like(org[:, 0], 3e38), alive)

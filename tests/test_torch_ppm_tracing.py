@@ -128,7 +128,9 @@ def test_no_host_read_per_iteration(ply):
 def test_path_traced_records_are_unchanged(ply):
     """build_pt records one build.scene span of the set-up (it moved into
     build, which build_pt calls), and a path-traced mesh image's record
-    holds the pt.* spans and counters it always held, no ppm.* one."""
+    holds the pt.* spans and counters it always held, with trace's count
+    of its bounces (pt.mesh_bounces; on the CPU no pt.fused_bounces), no
+    ppm.* one."""
     with profile(activities=[ProfilerActivity.CPU]):
         scene, cam, bg, mesh = ganesha.build_pt(ply, 1.0, CPU)
     assert [n for n, _, _, _ in tracing.setup().intervals] == ["build.scene"]
@@ -140,7 +142,8 @@ def test_path_traced_records_are_unchanged(ply):
     assert set(rec.total_ns) == {
         "pt.render", "pt.primary", "pt.bounce", "pt.intersect", "pt.tile",
         "pt.walk", "pt.scatter", "pt.film", "pt.sync"}
-    assert set(rec.counts) == {"pt.lanes", "pt.live_lanes", "pt.passes"}
+    assert set(rec.counts) == {"pt.lanes", "pt.live_lanes", "pt.passes",
+                               "pt.mesh_bounces"}
 
 
 def test_sphere_path_loads_no_photon_mapper():
