@@ -71,7 +71,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
      the distinct ranges per warp and offset, and the longest block alone;
   7. cornell render: `cornell-box 600x600, 10 iterations, 75,000 photons,
      4 bounces` through PPMRenderer.render (what the CLI calls), with the
-     three kernels' launch counts, the first iteration's seconds and the
+     three kernels' launch counts, the eye walk's live lanes and lanes
+     (the ppm.walk_live and ppm.walk_lanes counters of the render's
+     record) and their ratio, the first iteration's seconds and the
      median s/iter of iterations 2-10, the host's wait at the gather's
      read of its item count, the photon map length of each
      iteration against the reference file's (within 0.1%), the RMSE of the
@@ -1475,6 +1477,9 @@ def ppm_phases(torch, np, dev, smi):
     launches = {k: fn.launches for k, fn in counters.items()}
     gk.block_items = block_items
     read_no_path("cornell", launches)
+    from pathtracer_tpu_torch.utils import tracing
+    walk = {k: tracing.images()[-1].counts[f"ppm.{k}"]
+            for k in ("walk_live", "walk_lanes")}
     iter_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
     lengths = [int(n) for n in rend.photon_map_lengths]
     segments = [int(s) for s, _ in rend.iter_segments]
@@ -1497,7 +1502,9 @@ def ppm_phases(torch, np, dev, smi):
           max_length_rel_err=f"{len_err:.3e}",
           photon_segments=json.dumps(segments), rmse=f"{rmse:.6e}",
           host_read_wait_ms=json.dumps([round(w, 4) for w in waits]),
-          launches=json.dumps(launches), gpu=json.dumps(smi))
+          launches=json.dumps(launches), **walk, walk_live_pct=(
+              f"{100.0 * walk['walk_live'] / walk['walk_lanes']:.3f}"),
+          gpu=json.dumps(smi))
     require(all(n > 0 for n in launches.values()),
             f"a kernel did not run on the cornell path: {launches}")
     require(len_err <= PPM_LENGTH_SLACK,

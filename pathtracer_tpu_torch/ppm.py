@@ -49,11 +49,16 @@ closing read). The counters `ppm.iters`, `ppm.deposit_rows`,
 are the iterations' sums; those kept on the device are added there and
 read once, at the closing `ppm.sync`. On a group of ranks `ppm.deposits`
 and `ppm.photon_segments` are the group's, the rest this rank's (the ring
-counts no eye hits). On a card with no group the iterations after the
-first replay a CUDA graph of the photon pass, chunk build and eye walk
-(graph.Replay): each replay is one `ppm.replay` span in place of those
-stages' spans and counts `ppm.graph_iters`, and the capture is one
-`ppm.capture` span.
+counts no eye hits). With no group, `ppm.walk_lanes` counts on the host
+the lanes the eye walk runs over, eye lanes x walk bounces an iteration,
+and `ppm.walk_live` the lanes live as each walk bounce begins, summed over
+the bounces: a device sum read at the closing `ppm.sync` where the walk
+takes more than one bounce, else the image's pixels, known on the host
+(the tile path's walk of one bounce adds no device operation). On a
+card with no group the iterations after the first replay a CUDA graph of
+the photon pass, chunk build and eye walk (graph.Replay): each replay is
+one `ppm.replay` span in place of those stages' spans and counts
+`ppm.graph_iters`, and the capture is one `ppm.capture` span.
 
 Not ported: the XLA hash-grid gather (the plain chunk gather covers the
 CPU), the eye-walk compaction ladder (specular mesh scenes only), the fused
@@ -363,8 +368,9 @@ def make_eye_pass(camera: Camera, width: int, height: int,
     tile rows: the eye rays then meet the mesh through intersect_tile_tris
     instead of the walk. eye_pass.primary, .walk, .gather and .finish are
     the stages, for tests, measurement and the sharded photon maps;
-    eye_pass.shade(walked, radius, grid) is the part after the walk (the
-    gather and finish of walk's output)."""
+    eye_pass.walk_counted is the walk with its live lanes counted (the
+    iteration graph's); eye_pass.shade(walked, radius, grid) is the part
+    after the walk (the gather and finish of walk's output)."""
     sampler = Sampler(2 + max_bounces)
     eff_bounces = max_bounces if eff_bounces is None else eff_bounces
     if band_rows is None:
@@ -408,16 +414,21 @@ def make_eye_pass(camera: Camera, width: int, height: int,
         d = camera.ray_dirs(cx, cy)
         return offs, torch.zeros_like(d), d, alive0
 
-    def walk(offset_base):
+    def walk_counted(offset_base):
         """The specular walk: (fd_pt, fd_nrm, fd_beta, fd_ok), each lane's
-        first diffuse hit."""
+        first diffuse hit, and the lanes live as each bounce begins, summed
+        over the bounces: a 0-dim int64 tensor, or None for a walk of one
+        bounce, whose live lanes are the band's pixels."""
         offs, org, d, alive = primary(offset_base)
         beta = torch.ones_like(d)
         fd_pt = torch.zeros_like(d)
         fd_nrm = torch.zeros_like(d)
         fd_beta = torch.zeros_like(d)
         fd_ok = torch.zeros_like(alive0)
+        live = None
         for b in range(eff_bounces):
+            if eff_bounces > 1:
+                live = alive.sum() if live is None else live + alive.sum()
             u = sampler.get(offs, 2 + b)  # one dimension per eye bounce
             h = hit_setup(org, d, alive)
             hit = h["hit"] & alive
@@ -447,7 +458,11 @@ def make_eye_pass(camera: Camera, width: int, height: int,
             org = vec.where3(alive, new_org, org)
             d = vec.where3(alive, dir_world, d)
             beta = vec.where3(alive, beta_new, beta)
-        return fd_pt, fd_nrm, fd_beta, fd_ok
+        return fd_pt, fd_nrm, fd_beta, fd_ok, live
+
+    def walk(offset_base):
+        """walk_counted's first diffuse hits, without the count."""
+        return walk_counted(offset_base)[:4]
 
     def finish(fd_beta, fd_ok, flux, radius: float):
         r = np.float32(radius)
@@ -473,6 +488,7 @@ def make_eye_pass(camera: Camera, width: int, height: int,
         return shade(walked, radius, grid)
 
     eye_pass.primary, eye_pass.walk = primary, walk
+    eye_pass.walk_counted = walk_counted
     eye_pass.gather, eye_pass.finish = gather_hits, finish
     eye_pass.shade = shade
     return eye_pass
@@ -483,6 +499,8 @@ def _fresh(out):
     result aliases memory that the next replay writes."""
     if isinstance(out, torch.Tensor):
         return out.clone() if out.dim() == 0 else out
+    if out is None:
+        return None
     return type(out)(_fresh(x) for x in out)
 
 
@@ -510,7 +528,8 @@ class _Passes(NamedTuple):
         chunk build and each band's walk with its eye hits. The offsets are
         ints or 0-dim int64 tensors on the device (a CUDA graph's inputs).
         Returns (photon segments, map length, grid, walks: per band
-        (fd_pt, fd_nrm, fd_beta, fd_ok, eye hits))."""
+        (fd_pt, fd_nrm, fd_beta, fd_ok, eye hits, live lanes or None:
+        make_eye_pass's walk_counted))."""
         with tracing.span("ppm.photons"):
             deps = self.trace_photons.deposits(photon_offset)
             segments, n_photons = deps[4], deps[3].sum()
@@ -519,8 +538,8 @@ class _Passes(NamedTuple):
         walks = []
         for eye in self.eyes.values():
             with tracing.span("ppm.eye"):
-                walked = eye.walk(eye_offset)
-            walks.append(walked + (walked[3].sum(),))
+                walked = eye.walk_counted(eye_offset)
+            walks.append(walked[:4] + (walked[3].sum(), walked[4]))
         return segments, n_photons, grid, walks
 
 
@@ -743,6 +762,7 @@ class PPMRenderer:
         self.iter_segments = []
         self.photon_map_lengths = []
         hits = []  # the eye hits of each band and iteration (device)
+        live = []  # the walk's live lanes of each band and iteration (device)
         for i in range(start_iter, self.iterations):
             t_iter = time.monotonic()
             r = self.radius(i + 1)
@@ -780,6 +800,11 @@ class PPMRenderer:
                 bands = [eyes[b].shade(w[:4], r, grid)
                          for b, w in zip(mine, walks)]
                 hits.extend(w[4] for w in walks)
+                tracing.count("ppm.walk_lanes", eye_lanes * eff_bounces)
+                if eff_bounces == 1:
+                    tracing.count("ppm.walk_live", self.width * self.height)
+                else:
+                    live.extend(w[5] for w in walks)
             elif mode is False:
                 bands = [eyes[b](offset, r, grid, hits) for b in mine]
             elif mode == "ring":
@@ -813,24 +838,23 @@ class PPMRenderer:
             self.photon_map_lengths.append(n_photons)
             if checkpoint_cb is not None:
                 checkpoint_cb(i, img_sum)
-        self._count_totals(hits)
+        self._count_totals(hits, live)
         return img_sum
 
-    def _count_totals(self, hits) -> None:
-        """The closing read: the iterations' deposits, photon segments and
-        eye hits, each summed on the device, read in one ppm.sync."""
-        if not self.photon_map_lengths:
+    def _count_totals(self, hits, live) -> None:
+        """The closing read: the iterations' deposits, photon segments, eye
+        hits and the walk's live lanes, each summed on the device, read in
+        one ppm.sync."""
+        parts = [("ppm.deposits", self.photon_map_lengths),
+                 ("ppm.photon_segments", [s for s, _ in self.iter_segments]),
+                 ("ppm.eye_hits", hits), ("ppm.walk_live", live)]
+        sums = [(name, torch.stack(x).sum()) for name, x in parts if x]
+        if not sums:
             return
-        sums = [torch.stack(self.photon_map_lengths).sum(),
-                torch.stack([s for s, _ in self.iter_segments]).sum()]
-        if hits:
-            sums.append(torch.stack(hits).sum())
         with tracing.span("ppm.sync"):
-            totals = torch.stack(sums).tolist()
-        tracing.count("ppm.deposits", totals[0])
-        tracing.count("ppm.photon_segments", totals[1])
-        if hits:
-            tracing.count("ppm.eye_hits", totals[2])
+            totals = torch.stack([x for _, x in sums]).tolist()
+        for (name, _), total in zip(sums, totals):
+            tracing.count(name, total)
 
     def _stitch(self, bands, n_bands: int, rows: int):
         """The image (H, W, 3) in camera row order from this rank's bands

@@ -1140,7 +1140,9 @@ def test_ppm_graph_replay_equals_the_eager_render(dev, tmp_path, monkeypatch,
     eager render of the same renderer bit for bit: img_sum,
     photon_map_lengths, iter_segments, the ppm.eye_hits, ppm.deposits and
     ppm.photon_segments counters, and the launches of every kernel wrapper
-    (each launch of the captured iteration is counted again on replay).
+    (each launch of the captured iteration is counted again on replay),
+    and the walk's ppm.walk_lanes and ppm.walk_live (a device sum on
+    cornell's specular walk, a host count on ganesha's tile pass).
     Every iteration but a capture's first (the warm-up) is a replay:
     ppm.graph_iters 2, 3, then 2 of ppm.iters 3. No earlier result changes
     under a later replay."""
@@ -1152,7 +1154,7 @@ def test_ppm_graph_replay_equals_the_eager_render(dev, tmp_path, monkeypatch,
     wrappers = sorted(kernel_wrappers(),
                       key=lambda f: (f.__module__, f.__qualname__))
     names = ("ppm.eye_hits", "ppm.deposits", "ppm.photon_segments",
-             "ppm.iters")
+             "ppm.iters", "ppm.walk_lanes", "ppm.walk_live")
 
     def render(r):
         for f in wrappers:
