@@ -3052,7 +3052,8 @@ def bvh4_phases(torch, np, dev, smi, rend):
 def seed_bounce_chain(torch, r, hier):
     """Phase 16a: the fused bounce at every bounce of pass 0 of Renderer
     `r` against its plain version, on the kernel's own state of the bounce
-    before, compacted before bounce 3 as the render does, and that
+    before, compacted before bounce 3 as the render does (the wavefront
+    keeps its width, its dead rows after the live ones), and that
     compaction against its plain version; each must be equal. Bounce 0
     runs the listed variant over r's tile lists, the others the full one
     over the sphere hierarchy `hier`. Returns (live lanes entering each
@@ -3077,10 +3078,9 @@ def seed_bounce_chain(torch, r, hier):
                   live=int((state[9] > 0).sum()), bit_identical=exact)
             require(exact, "seed scene: compact_blocks differs from its "
                     "plain version")
-            st_c, off_c, n_used = ck.pack_rows(*got)
-            keep = -(-int(n_used) // 8) * 8
-            require(keep > 0, f"seed scene: no live lane before bounce {b}")
-            state, off = st_c[:, :keep].contiguous(), off_c[:keep].contiguous()
+            state, off, n_used = ck.pack_rows(*got)
+            require(int(n_used) > 0,
+                    f"seed scene: no live lane before bounce {b}")
         if b == 1:
             state1 = state
         live.append(int((state[9] > 0).sum()))
@@ -3406,7 +3406,8 @@ def main() -> None:
 
     # every bounce of pass 0 as the render runs it: bounce 0 listed, the
     # rest full (the per-warp walk of the sphere hierarchy), compacted
-    # before bounce 3; each on the kernel's own state of the bounce before
+    # before bounce 3 over all 1,520 rows (the dead ones after the live
+    # ones); each on the kernel's own state of the bounce before
     n_sph = int(scene.valid.sum())
     fb_err = 0.0
     fb_times, fb_in, fb_cull, fb_dev = {}, {}, {}, {}
@@ -3436,11 +3437,10 @@ def main() -> None:
                   device_ms=f"{kernel_ms(per, 'compact_kernel'):.4f}",
                   plain_device_ms=f"{pdev:.4f}")
             require(exact, "compact_blocks differs from its plain version")
-            st_c, off_c, n_used = ck.pack_rows(*ck_k)
-            keep = -(-int(n_used) // 8) * 8
-            require(keep > 0, f"no live lane before bounce {b}")
-            state_in = st_c[:, :keep].contiguous()
-            off_b = off_c[:keep].contiguous()
+            # the wavefront keeps its width: the live rows first, the
+            # dead ones after them, as trace_wavefront runs it
+            state_in, off_b, n_used = ck.pack_rows(*ck_k)
+            require(int(n_used) > 0, f"no live lane before bounce {b}")
         fb_in[b] = state_in
         st_k, rad_k = bounce(fbk.fused_bounce, state_in, off_b, b)
         st_p, rad_p = bounce(fbk.fused_bounce_plain, state_in, off_b, b)

@@ -1,5 +1,6 @@
-"""CUDA-graph replay of a renderer's repeated work: a MeshRenderer pass
-(integrator) and a PPMRenderer iteration's prefix (ppm).
+"""CUDA-graph replay of a renderer's repeated work: a path tracer's pass
+(integrator: a Renderer's or a MeshRenderer's) and a PPMRenderer
+iteration's prefix (ppm).
 
 Both are the same for every pass or iteration of a renderer but for a
 few integers (the pass index; the photon and eye offsets), read nothing
@@ -24,7 +25,7 @@ replay is one `<prefix>.replay` span, adds both deltas and counts the
 replay counter; the capture is one `<prefix>.capture` span.
 
 The renderers import this module only where a card first needs a graph, so
-the sphere path and the CPU never load it.
+the CPU never loads it.
 """
 
 from __future__ import annotations

@@ -26,10 +26,10 @@ _default_compact_at bounces.
 
 Design choice, not a port of the JAX code: the JAX package pre-sizes
 lax.switch buckets for the post-compaction wavefront because TPU shapes are
-static. Here each compaction reads the live row count once on the host (one
-sync per compaction) and runs the remaining bounces on that many rows,
-rounded up to a multiple of 8 (one 1024-ray block). Rows past the live count
-are dead after pack_rows, so the cut is exact.
+static. Here the remaining bounces run over all the rows, the live lanes
+packed into the first ones and dead rows after them, so a pass reads
+nothing back to the host and has one shape, and a card replays it as one
+CUDA graph. The dead rows pass through the bounce.
 
 A scene with a triangle mesh (ops.bvh.MeshBVH; the path-traced ganesha)
 takes the JAX composite tier instead: every bounce is the Intersector
@@ -332,7 +332,17 @@ def trace_wavefront(sph_table, pack_table, state, off, sampler: Sampler,
     each bounce is one fused_bounce (True) or intersect_state then
     shade_state (False, the parity path of the module docstring).
     Returns (radiance (3, rows, 128) in the input lane order, segments
-    0-dim int64 tensor on the device)."""
+    0-dim int64 tensor on the device).
+
+    Every bounce runs over all the rows, so no value goes to the host,
+    and counts them all in pt.lanes. After a compaction the live lanes are
+    packed into the first rows (pack_rows' count, which stays on the
+    device) and the rows past them are dead and zero: compact_blocks
+    writes every lane of a block, its tail zeroed and dead, pack_rows
+    moves whole rows, and the bounce writes every lane, passing a dead one
+    through. The radiance starts again at zero, so those rows add nothing
+    to the segments or the radiance, and _to_orig reads no lane of
+    theirs."""
     bg_mode, bg = background
     bounce_fn = fbk.fused_bounce if fuse_bounce else _two_kernel_bounce
     compact_at = {b for b in _default_compact_at(max_bounces)
@@ -350,18 +360,11 @@ def trace_wavefront(sph_table, pack_table, state, off, sampler: Sampler,
                     flush += _to_orig(rad, chain)
                     alive_pre = state[9] > 0.0
                     st_c, off_c, k = ck.compact_blocks(state, off)
-                    state, off, n_used = ck.pack_rows(st_c, off_c, k)
+                    state, off, _ = ck.pack_rows(st_c, off_c, k)
                     chain.append((alive_pre.reshape(-1),
                                   ck.dest_map(alive_pre, k)))
-                    with tracing.span("pt.sync"):
-                        keep = -(-int(n_used) // 8) * 8
-                    if keep == 0:
-                        return flush.reshape(3, rows, LANES), segments
-                    state = state[:, :keep].contiguous()
-                    off = off[:keep].contiguous()
-                    rad = torch.zeros(3, keep, LANES, dtype=torch.float32,
-                                      device=dev)
-            tracing.count("pt.lanes", state.shape[1] * LANES)
+                    rad = torch.zeros_like(rad)
+            tracing.count("pt.lanes", rows * LANES)
             segments += (state[9] > 0.0).sum()
             state, rad = bounce_fn(
                 sph_table, state, pack_table, off,
@@ -387,8 +390,16 @@ class _BandRenderer(torch.nn.Module):
     sharded render, parallel/mesh.py). Each lane's result does not depend
     on the band it is traced in, so stitched bands equal the whole image
     bit for bit. The sums and segments are buffers that each band_sums
-    zeroes and adds every pass into (a CUDA graph's static outputs on the
-    mesh path); band_sums returns copies of them."""
+    zeroes and adds every pass into (a CUDA graph's static outputs on a
+    card); band_sums returns copies of them.
+
+    On a CUDA device band_sums adds each pass as a CUDA graph (graph.Replay,
+    loaded there and nowhere else): the renderer's first pass eagerly, as
+    the warm-up before the capture, every later one as a replay of the
+    captured pass, to the same sums bit for bit. A pass reads nothing back
+    to the host, so the image's one read of the device is its closing
+    pt.sync. On the CPU, and under another graph's capture, the passes run
+    eagerly."""
 
     def __init__(self, camera: Camera, background, width: int, height: int,
                  spp: int, max_bounces: int, tile_row0: int,
@@ -406,6 +417,7 @@ class _BandRenderer(torch.nn.Module):
         # the band's pixels inside the image
         self.band_pixels = max(0, min(self.band * TILE,
                                       height - TILE * tile_row0)) * width
+        self._graph = None  # the pass's Replay, made at a pass on a card
 
     def _register(self, device, **arrays) -> None:
         """Register each array as a buffer on `device`, with the segments
@@ -436,8 +448,15 @@ class _BandRenderer(torch.nn.Module):
         self.segments += segs
 
     def _pass_adder(self):
-        """The function band_sums adds each pass with."""
-        return self._add_pass
+        """The function band_sums adds each pass with: _add_pass, or on a
+        card its Replay."""
+        if not self.sums.is_cuda or torch.cuda.is_current_stream_capturing():
+            return self._add_pass
+        if self._graph is None:
+            from .graph import Replay
+            self._graph = Replay(_BandRenderer._add_pass, 1, self.sums.device,
+                                 "pt", "pt.graph_passes")
+        return functools.partial(self._graph, self)
 
     @torch.no_grad()
     def band_sums(self, pass_ids, progress=None):
@@ -485,7 +504,11 @@ class Renderer(_BandRenderer):
     tile-major ray order and the filter are buffers, so `.to(device)` moves
     them. fuse_bounce: one fused kernel per bounce (True) or the two-kernel
     parity path (False). The sphere hierarchy is built at the first pass on
-    the card (sphere_hierarchy) and kept with the renderer."""
+    the card (sphere_hierarchy) and kept with the renderer.
+
+    Each pass runs every bounce over all the band's lanes (trace_wavefront),
+    so a pass has fixed shapes and no host read, and a card replays it as a
+    CUDA graph (_BandRenderer), with either bounce."""
 
     def __init__(self, scene: Scene, camera: Camera, background, width: int,
                  height: int, spp: int, max_bounces: int, device,
@@ -532,15 +555,15 @@ class Renderer(_BandRenderer):
                 self._sphere_bvh = build_sphere_bvh(self.sph_table)
         return self._sphere_bvh
 
-    def initial_wavefront(self, pass_idx: int):
+    def initial_wavefront(self, pass_idx):
         """Bounce-0 (state, off) of one pass in tile-major order."""
         offset, d = self._camera_rays(self.pix, self.x_c, self.y_c, pass_idx)
         state = initial_state(d, self.valid)
         return state, offset.to(torch.int32).reshape(state.shape[1], LANES)
 
-    def trace_pass(self, pass_idx: int):
+    def trace_pass(self, pass_idx):
         """One sample per pixel: (radiance planes (3, rows, 128) in tile-major
-        order, segments tensor)."""
+        order, segments tensor). pass_idx as _camera_rays'."""
         with tracing.span("pt.primary"):
             state, off = self.initial_wavefront(pass_idx)
         return trace_wavefront(self.sph_table, self.pack_table, state, off,
@@ -684,13 +707,7 @@ class MeshRenderer(_BandRenderer):
     (flip_y=True), back-face culled when the mesh is watertight, and the
     band's maps of it (band_tile_maps); bounces >= 1 walk the mesh's BVH8
     table. The composite intersectors of both (hit_setup0, hit_setup) are
-    built once per renderer.
-
-    On a CUDA device band_sums adds each pass as a CUDA graph (graph.Replay,
-    loaded there and nowhere else): the first pass eagerly, as the warm-up
-    before the capture, every later one as a replay of the captured pass,
-    to the same sums bit for bit. On the CPU, and under another graph's
-    capture, the passes run eagerly."""
+    built once per renderer."""
 
     def __init__(self, scene: Scene, camera: Camera, background, width: int,
                  height: int, spp: int, max_bounces: int, device, mesh,
@@ -731,7 +748,6 @@ class MeshRenderer(_BandRenderer):
         self.mesh_intersect0 = mesh_intersect0
         self.hit_setup = Intersector(scene, mesh)
         self.hit_setup0 = Intersector(scene, mesh, mesh_intersect0)
-        self._graph = None  # the pass's Replay, made at a pass on a card
 
     def primary(self, pass_idx):
         """Bounce-0 rays of one pass: (offset, org, d, alive), offset =
@@ -746,15 +762,6 @@ class MeshRenderer(_BandRenderer):
             offset, org, d, alive = self.primary(pass_idx)
         return trace(self.sampler, org, d, offset, self.max_bounces,
                      self.sky_colors, alive, self.hit_setup, self.hit_setup0)
-
-    def _pass_adder(self):
-        if not self.lane.is_cuda or torch.cuda.is_current_stream_capturing():
-            return self._add_pass
-        if self._graph is None:
-            from .graph import Replay
-            self._graph = Replay(_BandRenderer._add_pass, 1, self.lane.device,
-                                 "pt", "pt.graph_passes")
-        return functools.partial(self._graph, self)
 
     def band_image(self, rad: torch.Tensor) -> torch.Tensor:
         """(lanes, 3) raster radiance -> the band's (band*32, W, 3) rows."""

@@ -63,6 +63,13 @@ renders must equal the eager passes of the same scene bit for bit, over
 two mesh turns and a second scene object (a new capture), with the eager
 launch counts, progress calls and pt.lanes, and no image may change under
 a later replay.
+The sphere renderer replays each pass as a CUDA graph on the card too,
+its wavefront at the full width after the compaction: its renders must
+equal eager renders of the same scene bit for bit (8 and 16 bounces, the
+two-kernel bounce), with the eager launch counts and counters, and a
+dropped renderer must free its graph's memory. The fused bounce must
+equal its plain version on the full-width wavefront after the
+compaction, whose dead blocks both pass through.
 The photon mapper replays each iteration's photon pass, chunk build and
 eye walk as a CUDA graph on the card: its renders (the small ganesha with
 the tile eye pass, and cornell) must equal eager renders of the same
@@ -192,6 +199,31 @@ def test_fused_bounce_walk_ties_to_the_lowest_index(dev):
     want = sk.intersect_state_plain(sph, state, origin_zero=False)
     assert torch.equal(at, want[0]) and torch.equal(idx, want[1])
     assert int((idx == big).sum()) > 0
+
+
+def test_fused_bounce_kernel_matches_plain_after_the_compaction(dev):
+    """Bounces 3-7 of a 256x128 shirley pass as the render runs them: the
+    compaction at bounce 3 packs the live lanes into the first rows, and
+    the wavefront keeps its width, the blocks after them dead, which both
+    versions pass through."""
+    scene, cam, bg = shirley.build(2.0, dev)
+    r = Renderer(scene, cam, bg, 256, 128, 1, 8, dev)
+    state, off = r.initial_wavefront(0)
+    rad = torch.zeros(3, state.shape[1], 128, device=dev)
+    for b in range(8):
+        if b == 3:
+            state, off, n_used = ck.pack_rows(*ck.compact_blocks(state, off))
+            rad = torch.zeros_like(rad)
+            assert 0 < int(n_used) <= state.shape[1] - 16
+        args = (r.sph_table, state, r.pack_table, off,
+                r.sampler.limbs(2 + 2 * b, 3 + 2 * b), bg[1], rad)
+        kw = dict(bg_mode=bg[0], origin_zero=b == 0,
+                  block_lists=(r.lists, r.counts) if b == 0 else None,
+                  sphere_bvh=r.sphere_hierarchy())
+        st_k, rad_k = fbk.fused_bounce(*args, **kw)
+        st_p, rad_p = fbk.fused_bounce_plain(*args, **kw)
+        assert torch.equal(st_k, st_p) and torch.equal(rad_k, rad_p), b
+        state, rad = st_k, rad_k
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.03, 0.5, 1.0])
@@ -1278,6 +1310,114 @@ def test_two_kernel_render_equals_fused_render(dev):
     assert fbk.fused_bounce.launches == 0
     img1, segs1 = make_render_fn(cam, bg, 160, 80, 2, 8, dev)(scene)
     assert segs0 == segs1 and torch.equal(img0, img1)
+
+
+@pytest.mark.parametrize("bounces,fuse", [(8, True), (16, True),
+                                          (8, False)])
+def test_sphere_graph_replay_equals_the_eager_render(dev, bounces, fuse):
+    """make_render_fn at 160x80, spp 3, renders scene A, A again, then a
+    second scene object B (a new Renderer: a new capture), on the fused
+    and on the two-kernel bounce. Each render equals an eager render of a
+    renderer of the same scene bit for bit (image and segments), with its
+    bounce kernels' launches and its pt.passes, pt.lanes and
+    pt.live_lanes, and replays every pass but a fresh renderer's first
+    (the warm-up before the capture): pt.graph_passes 2, then 3. No image
+    changes under a later replay."""
+    from pathtracer_tpu_torch.integrator import _default_compact_at
+    from pathtracer_tpu_torch.utils import tracing
+
+    w, h, spp = 160, 80, 3
+    kernels = ((fbk.fused_bounce,) if fuse else
+               (sk.intersect_state, shk.shade_state))
+    scene_a, cam, bg = shirley.build(2.0, dev)
+    scene_b = shirley.build(2.0, dev)[0]
+    names = ("pt.passes", "pt.lanes", "pt.live_lanes")
+
+    def launches():
+        return [fn.launches for fn in kernels + (ck.compact_blocks,)]
+
+    def eager(scene):
+        r = Renderer(scene, cam, bg, w, h, spp, bounces, dev,
+                     fuse_bounce=fuse)
+        r._pass_adder = lambda: r._add_pass  # no graph
+        before = launches()
+        with tracing.span(tracing.ROOT):
+            img, segs = r()
+        counts = tracing.images()[-1].counts
+        assert "pt.graph_passes" not in counts
+        return (img, segs, [counts[n] for n in names],
+                [a - b for a, b in zip(launches(), before)])
+
+    render = make_render_fn(cam, bg, w, h, spp, bounces, dev,
+                            fuse_bounce=fuse)
+    kept = []
+    tracing.reset()
+    try:
+        for scene, graphed in ((scene_a, spp - 1), (scene_a, spp),
+                               (scene_b, spp - 1)):
+            want, want_segs, want_counts, want_launches = eager(scene)
+            before = launches()
+            img, segs = render(scene)
+            counts = tracing.images()[-1].counts
+            assert torch.equal(img, want) and segs == want_segs > w * h
+            assert [a - b for a, b in zip(launches(), before)] == \
+                want_launches == [spp * bounces] * len(kernels) + [
+                    spp * len(_default_compact_at(bounces))]
+            assert [counts[n] for n in names] == want_counts
+            assert counts["pt.graph_passes"] == graphed
+            kept.append((img, img.clone()))
+    finally:
+        tracing.reset()
+    assert all(torch.equal(img, copy) for img, copy in kept)
+
+
+def test_sphere_graph_pool_is_freed_with_its_renderer(dev):
+    """A Renderer that captured its pass, dropped when its render function
+    moves to another scene object, frees its graph and the graph's pool:
+    the device's allocated and reserved bytes come back to what they were
+    before it, once a render function of a third scene has warmed the
+    process up."""
+    import gc
+    import weakref
+
+    from pathtracer_tpu_torch.integrator import renderer_per_scene
+    from pathtracer_tpu_torch.utils import tracing
+
+    scene_a, cam, bg = shirley.build(2.0, dev)
+    scene_b, scene_c = (shirley.build(2.0, dev)[0] for _ in range(2))
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return (torch.cuda.memory_allocated(dev),
+                torch.cuda.memory_reserved(dev))
+
+    def rendered(renderer, scene):
+        r = renderer(scene)
+        for _ in range(2):  # the capture, then a replay
+            with tracing.span(tracing.ROOT):
+                r()
+        return r
+
+    tracing.reset()
+    try:
+        rendered(renderer_per_scene(cam, bg, 160, 80, 3, 8, dev), scene_c)
+        base = settle()
+        renderer = renderer_per_scene(cam, bg, 160, 80, 3, 8, dev)
+        r = rendered(renderer, scene_a)
+        graph = weakref.ref(r._graph)
+        held = r._graph.graph is not None
+        r = weakref.ref(r)
+        during = settle()
+        renderer(scene_b)
+        assert r() is None and graph() is None
+        del renderer
+        after = settle()
+    finally:
+        tracing.reset()
+    assert held and during[1] > base[1]
+    assert after[0] == base[0] and after[1] <= base[1]
 
 
 def _clustered_rays(dev, scene, cam, n, seed):

@@ -1,7 +1,8 @@
 """The port's wavefront at 16 bounces, the depth of the HQ configuration
 (bench.py's spp = 512, 16 bounces), on the CPU. Past 8 bounces the port
 compacts the lanes at bounces 2 and 4 (_default_compact_at), so it runs
-two compactions, two host syncs and a two-link _to_orig chain.
+two compactions, both over the full width, and a two-link _to_orig
+chain.
 
   - trace_wavefront (the kernels' plain versions) against the JAX
     _trace_pallas2 with its Pallas kernels in interpret mode, on the
@@ -72,9 +73,10 @@ def test_trace_wavefront_16_bounces_matches_pallas(monkeypatch):
         tshk.pack_material_tables(scene.shade_pack), state, off,
         Sampler(2 + 2 * B), B, bg, origin_zero=False)
     got = rad.reshape(3, -1).T.numpy()
-    # compactions before bounces 2 and 4, the second on fewer rows; the
-    # flushes at each and at the end walk chains of 0, 1 and 2 links
-    assert len(compactions) == 2 and compactions[1][1] < compactions[0][1]
+    # compactions before bounces 2 and 4, both over every row (the pass
+    # keeps its width); the flushes at each and at the end walk chains of
+    # 0, 1 and 2 links
+    assert len(compactions) == 2 and compactions[1] == compactions[0]
     assert links == [0, 1, 2]
 
     segs, want_segs = int(segs), int(want_segs)

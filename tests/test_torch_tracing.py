@@ -58,14 +58,14 @@ def _last_render(render, scene):
 
 
 def test_sphere_live_lanes_sum_to_segments():
-    """64x32, spp 2, 8 bounces: three bounces over every lane, then the
-    compaction at bounce 3 and five bounces over the rows it keeps."""
+    """64x32, spp 2, 8 bounces: the compaction at bounce 3 packs the live
+    lanes into the first rows, and every bounce runs over every lane."""
     scene, cam, bg = shirley.build(2.0, CPU)
     render = make_render_fn(cam, bg, 64, 32, 2, 8, CPU)
     segments, rec = _last_render(render, scene)
     lanes = 64 * 32  # whole tiles: 2 x 1 tiles of 1024 lanes
     assert rec.counts["pt.live_lanes"] == segments > 2 * 64 * 32
-    assert 2 * 3 * lanes < rec.counts["pt.lanes"] < 2 * 8 * lanes
+    assert rec.counts["pt.lanes"] == 2 * 8 * lanes
     assert rec.counts["pt.passes"] == 2
     assert rec.total_ns["pt.compact"] > 0 and rec.total_ns["pt.sync"] > 0
     assert rec.total_ns["pt.renderer_init"] > 0
@@ -77,8 +77,9 @@ def test_sphere_live_lanes_sum_to_segments():
 
 def test_sphere_pass_with_every_lane_dead_ends_at_the_compaction():
     """One small sphere behind the camera: every primary misses, so the
-    compaction at bounce 3 keeps no row and ends each pass; the live
-    lanes are the primaries alone."""
+    pass's live lanes end at the compaction at bounce 3, which finds none;
+    the bounces after it pass the dead lanes through. The live lanes are
+    the primaries alone."""
     cam = shirley.make_camera(2.0)
     b = SceneBuilder()
     b.add_sphere((143.0, 22.0, 49.5), 1.0, LAMBERTIAN, color_a=(1, 1, 1))
@@ -86,7 +87,7 @@ def test_sphere_pass_with_every_lane_dead_ends_at_the_compaction():
     segments, rec = _last_render(
         make_render_fn(cam, shirley.BACKGROUND, 64, 32, 2, 8, CPU), scene)
     assert segments == rec.counts["pt.live_lanes"] == 2 * 64 * 32
-    assert rec.counts["pt.lanes"] == 2 * 3 * 64 * 32  # bounces 0-2 only
+    assert rec.counts["pt.lanes"] == 2 * 8 * 64 * 32
 
 
 def test_mesh_live_lanes_sum_to_segments(tmp_path):
@@ -193,13 +194,13 @@ def test_annotations_lie_inside_their_intervals():
     for (name, s, e), (_, s0, e0) in zip(got, want):
         assert s0 <= s <= e <= e0, (name, s0, s, e, e0)
     # the compaction at bounce 3 and the flush after the last bounce; the
-    # compaction's read of its row count and the image's closing read
+    # image's closing read, its one read of the device
     assert {(n, p) for n, p, _, _ in rec.intervals} == {
         ("pt.render", None), ("pt.renderer_init", "pt.render"),
         ("pt.primary", "pt.render"), ("pt.bounce", "pt.render"),
         ("pt.compact", "pt.bounce"), ("pt.compact", "pt.render"),
-        ("pt.sync", "pt.compact"), ("pt.film", "pt.render"),
-        ("pt.sync", "pt.render")}
+        ("pt.film", "pt.render"), ("pt.sync", "pt.render")}
+    assert sum(n == "pt.sync" for n, _, _, _ in rec.intervals) == 1
 
 
 @pytest.fixture
@@ -211,9 +212,10 @@ def card():
 
 @pytest.mark.cuda
 def test_device_operations_lie_inside_the_render(card):
-    """A profiled 256x128, spp 4, 8 bounces image on the card: every device
-    operation lies inside its pt.render interval, whose closing pt.sync
-    waits for the last of them."""
+    """A profiled 256x128, spp 4, 8 bounces image on the card (its passes
+    replayed as a CUDA graph): every device operation lies inside its
+    pt.render interval, whose closing pt.sync waits for the last of them
+    and is the image's one read of the device."""
     scene, cam, bg = shirley.build(2.0, card)
     render = make_render_fn(cam, bg, 256, 128, 4, 8, card)
     render(scene)
@@ -231,3 +233,7 @@ def test_device_operations_lie_inside_the_render(card):
     outside = [o for o in ops if not t0 <= o[1] <= o[2] <= t1]
     assert not outside, (t0, t1, outside[:5])
     assert rec.counts["pt.lanes"] % LANES == 0
+    assert rec.counts["pt.graph_passes"] == 4
+    assert sum(n == "pt.sync" for n, *_ in rec.intervals) == 1
+    assert sum("DtoH" in n for n, _, _ in ops) == 1, [
+        n for n, _, _ in ops if "Memcpy" in n]
