@@ -170,8 +170,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
      active lane, the kernel's own steps from its plain emulation
      bvh4_walk_cached_plain (required equal too: table loads mean and max,
      path-cache hits and misses, two-row leaf steps, the share of returns
-     served from the cache), its CUDA-event ms and its device ms (events
-     around launches enqueued behind a device sleep) beside bvh8_walk's on
+     served from the cache), its counters (required equal to the active
+     lanes and the emulation's table loads), its CUDA-event ms and its
+     device ms (events around launches enqueued behind a device sleep;
+     counters on, as MeshBVH launches it) beside bvh8_walk's on
      the same rays (phase 9's table), its bound and share of it, and the
      lanes whose hit, t or idx differ from bvh8_walk's (required 0); then
      the ganesha
@@ -184,8 +186,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
      takes the BVH4 walk (rows, table MB, host seconds of the BVH build,
      the walk table and the tile table), bvh4_walk on its path-traced
      pass 0's bounce-1 and bounce-3 rays as in (a), the path-traced
-     render on it
-     holds phase 13's gates, and the ganesha CLI renders it at 600x600 (2
+     render on it holds phase 13's gates and its walk counters (rays
+     equal to its segments less the primaries, more loads), and the ganesha CLI renders it at 600x600 (2
      iterations, map lengths printed beside the reference's) and prints
      its statistics with -stop-after-bvh.
  16. the seeded shirley scene and 16 bounces: (a) models.shirley.build(
@@ -2699,13 +2701,15 @@ def cache_counts(torch, bw, args, want) -> dict:
     outputs `want`: the steps of csrc/bvh4_walk.cu per active lane as it
     takes them (table loads: the chain of dependent loads, mean and max;
     node rows at phase > 0 read from the path cache and not; leaf steps
-    that test two rows) and the share of returns the cache served."""
+    that test two rows), their sum (loads) and the share of returns the
+    cache served."""
     *got, counts = bw.bvh4_walk_cached_plain(*args)
     require(all(torch.equal(g, w) for g, w in zip(got, want)),
             "bvh4_walk_cached_plain differs from bvh4_walk_plain")
     c = counts[args[4]]
     hits, misses, two = (int(x) for x in c[:, 1:].sum(dim=0))
-    return dict(loads_mean=f"{float(c[:, 0].float().mean()):.2f}",
+    return dict(loads=int(c[:, 0].sum()),
+                loads_mean=f"{float(c[:, 0].float().mean()):.2f}",
                 loads_max=int(c[:, 0].max()), cache_hits=hits,
                 cache_misses=misses, two_row_steps=two,
                 served_from_cache=f"{hits / max(hits + misses, 1):.4f}")
@@ -2714,8 +2718,10 @@ def cache_counts(torch, bw, args, want) -> dict:
 def bvh4_walk_readings(torch, bw, name, args, args8=None, plain=False):
     """One ray set of phase 15: bvh4_walk against its plain version
     (required equal) with the plain walk's steps and bound (walk_work),
-    the kernel's own steps (cache_counts), its CUDA-event ms (host cost
-    included) and device ms (held_ms); with args8 (phase 9's BVH8 table,
+    the kernel's own steps (cache_counts), its counters (required equal to
+    the active lanes and the emulation's loads), its CUDA-event ms (host
+    cost included) and device ms (held_ms), counters on as MeshBVH runs
+    it; with args8 (phase 9's BVH8 table,
     the same rays) bvh8_walk's ms beside it and the lanes whose hit, t or
     idx differ (required 0); with `plain` the plain version's ms. Prints
     the phase line; returns the set's record."""
@@ -2724,11 +2730,16 @@ def bvh4_walk_readings(torch, bw, name, args, args8=None, plain=False):
     want, fields, w_bound = walk_work(torch, bw, args, walk="bvh4")
     fields.update(plain_count_steps_s=f"{time.perf_counter() - t0:.3f}",
                   **cache_counts(torch, bw, args, want))
-    got = bw.bvh4_walk(*args)
+    counts = torch.zeros(2, dtype=torch.int64, device=args[1].device)
+    got = bw.bvh4_walk(*args, counts)
     torch.cuda.synchronize()
     exact = all(torch.equal(g, w) for g, w in zip(got, want))
-    kms = time_ms(torch, lambda: bw.bvh4_walk(*args))
-    dev_ms = held_ms(torch, lambda: bw.bvh4_walk(*args))
+    want_counts = [int(args[4].sum()), fields["loads"]]
+    require(counts.tolist() == want_counts,
+            f"bvh4_walk ({name}): counts {counts.tolist()}, want "
+            f"{want_counts} (active lanes, the emulation's loads)")
+    kms = time_ms(torch, lambda: bw.bvh4_walk(*args, counts))
+    dev_ms = held_ms(torch, lambda: bw.bvh4_walk(*args, counts))
     rec = dict(ms=kms, device_ms=dev_ms, bound_ms=w_bound["bound_ms"],
                bound_by=w_bound["bound_by"],
                steps_mean=float(fields["steps_mean"]),
@@ -2983,6 +2994,13 @@ def bvh4_phases(torch, np, dev, smi, rend):
                                        PT_BOUNCES, dev, mesh=mesh_b),
         scene_b, "ganesha_pt past the BVH8 range", 1)
     off_path("ganesha_pt_sub4", launches, want_pt)
+    # the counted render's walk counters: every live lane past bounce 0
+    rays, loads = mesh_b.walk_counts.tolist()
+    primaries = PT_SIZE * PT_SIZE * PT_SPP
+    require(rays == fields["segments"] - primaries and loads > rays,
+            f"ganesha_pt_sub4: walk counters {rays} rays, {loads} loads; "
+            f"want {fields['segments'] - primaries} rays, more loads")
+    fields.update(walk_rays=rays, walk_loads_per_ray=f"{loads / rays:.4f}")
     phase("bvh4_past_range_pt_render",
           config=f"{PT_SIZE}x{PT_SIZE},spp={PT_SPP},b={PT_BOUNCES}",
           launches=json.dumps(launches), gpu=json.dumps(smi), **fields)

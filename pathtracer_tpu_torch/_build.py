@@ -52,8 +52,8 @@ _SIGNATURES = {
                                _P, _P, _P, _P],
     "pt_bvh8_walk": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                      _I, _P],
-    "pt_bvh4_walk": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                     _I, _P],
+    "pt_bvh4_walk": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _P],
     "pt_intersect_state": [_P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
                            _I, _P, _P, _I, _I, _P],
     "pt_shade_state": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _U, _U, _U, _U,

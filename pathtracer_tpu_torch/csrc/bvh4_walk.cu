@@ -61,6 +61,12 @@
 // A ray's result does not depend on the other rays, so the JAX walk's
 // coherence sort, chunking and step caps are dropped.
 //
+// Counters: counts[0] += the active rays walked and counts[1] += their
+// table loads, the loop's iterations (what
+// bvh4_walk_cached_plain counts as its table loads). A group's lanes carry
+// the same count; each warp sums its groups' (__reduce_add_sync over the
+// lanes of its rays that exist) and adds them with one atomic a counter.
+//
 // Synchronisation: a slot is written only on a load, between two
 // __syncwarp(gmask) (every lane has read the slot's old row; every lane
 // sees the new one). A step reads only the slot at top, and a load writes
@@ -147,7 +153,8 @@ __global__ void __launch_bounds__(BLOCK)
                      const uint8_t* __restrict__ active,
                      float* __restrict__ t_out, float* __restrict__ u_out,
                      float* __restrict__ v_out, int* __restrict__ idx_out,
-                     uint8_t* __restrict__ hit_out, int n) {
+                     uint8_t* __restrict__ hit_out,
+                     unsigned long long* __restrict__ counts, int n) {
   __shared__ float4 cache_s[BLOCK / G][K][8];
   const int lane = threadIdx.x & 31;
   const int g = lane % G;  // lane within the group: the child it tests
@@ -155,6 +162,8 @@ __global__ void __launch_bounds__(BLOCK)
   const int shift = lane - g;  // the group's first lane in the warp
   const unsigned gmask = ((1u << G) - 1u) << shift;
   const int i = blockIdx.x * (BLOCK / G) + ray;
+  // the warp's lanes whose ray exists: each reaches the counters' sums
+  const unsigned rays_mask = __ballot_sync(0xffffffffu, i < n);
   if (i >= n) return;  // whole groups leave together
   float4(*cache)[8] = cache_s[ray];
 
@@ -163,17 +172,20 @@ __global__ void __launch_bounds__(BLOCK)
   const float inv_d[3] = {1.0f / d[0], 1.0f / d[1], 1.0f / d[2]};
   const int oct = (d[0] < 0.0f) * 4 + (d[1] < 0.0f) * 2 + (d[2] < 0.0f);
   const float t_lim = nan_min(t_max0[i], BIG);
-  int ptr = active[i] ? oct * (4 * stride) : done;
+  const bool walked = active[i] != 0;
+  int ptr = walked ? oct * (4 * stride) : done;
   int lret = done;
   float tb = t_lim, ub = 0.0f, vb = 0.0f;
   int ib = 0;
   int top = 0, cnt = 0;  // the cache's newest slot, and its slots in use
   int tag[TAGS];         // the table rows in slots g + G j
+  unsigned loads = 0;    // the iterations: the ray's table loads
 #pragma unroll
   for (int j = 0; j < TAGS; ++j) tag[j] = -1;
   // An iteration: the one step that reads the table, then the steps that
   // the cache serves (returns to a cached row of the path).
   while (ptr != done) {
+    ++loads;
     // The table load, one for node and leaf groups alike: a node row's
     // float4 g and g + G, or triangle g of a leaf's next two rows, its
     // columns 12 (g & 1) .. +11 of row ptr / 4 + g / 2 (a, e1, e2, the
@@ -237,6 +249,13 @@ __global__ void __launch_bounds__(BLOCK)
     idx_out[i] = ib;
     hit_out[i] = tb < t_lim;
   }
+  const unsigned n_rays =
+      __reduce_add_sync(rays_mask, g == 0 && walked ? 1u : 0u);
+  const unsigned n_loads = __reduce_add_sync(rays_mask, g == 0 ? loads : 0u);
+  if (lane == __ffs(rays_mask) - 1) {
+    atomicAdd(counts, (unsigned long long)n_rays);
+    atomicAdd(counts + 1, (unsigned long long)n_loads);
+  }
 }
 
 }  // namespace
@@ -244,20 +263,22 @@ __global__ void __launch_bounds__(BLOCK)
 extern "C" {
 
 // table (rows, 32) f32; org, dir (n, 3) f32; t_max0 (n,) f32; active (n,)
-// bool; t, u, v (n,) f32, idx (n,) int32, hit (n,) bool; all device
+// bool; t, u, v (n,) f32, idx (n,) int32, hit (n,) bool; counts (2,) int64
+// (the rays walked and their table loads, added to); all device
 // pointers. node_end4 = 4 * node_end, done = 4 * (rows - 1); lanes_per_ray
 // must be 4. Returns the cudaError_t of the launch.
 int pt_bvh4_walk(const float* table, int node_end4, int stride, int done,
                  const float* org, const float* dir, const float* t_max0,
                  const uint8_t* active, float* t, float* u, float* v,
-                 int* idx, uint8_t* hit, int n, int lanes_per_ray,
-                 void* stream) {
+                 int* idx, uint8_t* hit, long long* counts, int n,
+                 int lanes_per_ray, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (lanes_per_ray != G) return (int)cudaErrorInvalidValue;
   bvh4_walk_kernel<<<(n + BLOCK / G - 1) / (BLOCK / G), BLOCK, 0,
                      (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(table), node_end4, stride, done, org,
-      dir, t_max0, active, t, u, v, idx, hit, n);
+      dir, t_max0, active, t, u, v, idx, hit,
+      reinterpret_cast<unsigned long long*>(counts), n);
   return (int)cudaGetLastError();
 }
 

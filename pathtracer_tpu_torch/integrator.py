@@ -487,14 +487,28 @@ class _BandRenderer(torch.nn.Module):
         reconstruction filter, then the mean over the spp passes."""
         return film.finalize(film.apply_filter(img, self.kern2d), self.spp)
 
+    # a BVH4 mesh's walk counters (MeshRenderer), else None
+    walk_counts = None
+
     @torch.no_grad()
     def forward(self, progress=None):
+        walk = self.walk_counts
+        if walk is not None:  # the image's own rays and loads
+            walk.zero_()
         sums, segments = self.band_sums(range(self.spp), progress)
         with tracing.span("pt.film"):
             img = self.finish(self.image(sums))
         with tracing.span("pt.sync"):
-            segments = int(segments)
+            if walk is None:
+                segments = int(segments)
+            else:
+                segments, rays, loads = torch.cat([segments.view(1),
+                                                   walk]).tolist()
         tracing.count("pt.live_lanes", segments)
+        if walk is not None:
+            tracing.count("pt.walk_rays", rays)
+            if walk.is_cuda:  # the plain walk counts no loads
+                tracing.count("pt.walk_loads", loads)
         return img, segments
 
 
@@ -706,8 +720,12 @@ class MeshRenderer(_BandRenderer):
     a table built once per renderer with the path tracer's film map
     (flip_y=True), back-face culled when the mesh is watertight, and the
     band's maps of it (band_tile_maps); bounces >= 1 walk the mesh's BVH8
-    table. The composite intersectors of both (hit_setup0, hit_setup) are
-    built once per renderer."""
+    table, or its BVH4 table past the BVH8 table's range. The composite
+    intersectors of both (hit_setup0, hit_setup) are built once per
+    renderer. On a BVH4 mesh forward zeroes the mesh's walk counters
+    before an image and reads them with its segments in the closing
+    pt.sync: pt.walk_rays, the rays the walks took, and on a card
+    pt.walk_loads, their table loads."""
 
     def __init__(self, scene: Scene, camera: Camera, background, width: int,
                  height: int, spp: int, max_bounces: int, device, mesh,
@@ -746,6 +764,7 @@ class MeshRenderer(_BandRenderer):
         # closures over tensors, not over the renderer: no reference cycle
         # keeps a dropped renderer, and its graph's pool, alive
         self.mesh_intersect0 = mesh_intersect0
+        self.walk_counts = mesh.walk_counts
         self.hit_setup = Intersector(scene, mesh)
         self.hit_setup0 = Intersector(scene, mesh, mesh_intersect0)
 

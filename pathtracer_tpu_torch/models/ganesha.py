@@ -64,7 +64,8 @@ def load_mesh(path: str, camera: Camera, device) -> MeshBVH:
 def build(path: str, aspect: float, device):
     """Returns (scene [the floor only] on `device`, camera, lights, mesh).
     PPMRenderer takes the initial radius from the mesh's box. The build is
-    one build.scene span of utils.tracing."""
+    one build.scene span of utils.tracing, the mesh's hierarchy, walk
+    table and upload a build.mesh_bvh span inside it (MeshBVH)."""
     with tracing.span("build.scene"):
         return _build(path, aspect, device)
 

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils import tracing
 from .cuda.bvh_walk_kernel import bvh4_walk, bvh8_walk
 
 __all__ = ["build_walk_table4", "build_walk_table8", "MeshBVH"]
@@ -92,12 +93,19 @@ class MeshBVH:
     the table's kind. The host arrays stay numpy; the walk table
     (`table`), the (9, T) winner-attribute pack [a | e1 | e2]
     (`tri_pack9`) and the material row (`mat_row_t`) are tensors on
-    `device`."""
+    `device`. A BVH4 mesh also holds `walk_counts`, a (2,) int64 tensor on
+    `device` that each walk adds its rays and table loads to (bvh4_walk's
+    counts; None on a BVH8 mesh). The build (the hierarchy, the walk
+    table, the upload) is one build.mesh_bvh span of utils.tracing."""
 
     def __init__(self, vertices, faces, mat_row, device, watertight=False,
                  walk="bvh8"):
         if walk not in WALKS:
             raise ValueError(f"walk must be one of {WALKS}, got {walk!r}")
+        with tracing.span("build.mesh_bvh"):
+            self._build(vertices, faces, mat_row, device, watertight, walk)
+
+    def _build(self, vertices, faces, mat_row, device, watertight, walk):
         vertices = np.asarray(vertices, np.float32)
         faces = np.asarray(faces, np.int64)
         if faces.ndim != 2 or faces.shape[1] != 3:
@@ -166,15 +174,21 @@ class MeshBVH:
         self.tri_pack9 = torch.as_tensor(np.ascontiguousarray(pack9),
                                          device=self.device)
         self.mat_row_t = torch.as_tensor(self.mat_row, device=self.device)
+        self.walk_counts = (torch.zeros(2, dtype=torch.int64,
+                                        device=self.device)
+                            if self.walk == "bvh4" else None)
 
     def intersect(self, org, d, t_max0, active):
         """Nearest mesh hit of each ray no farther than t_max0 (the walk
-        kernel of the table's kind, bvh8_walk or bvh4_walk; its plain
-        version for CPU tensors). org, d (N, 3) f32; t_max0 (N,) f32;
-        active (N,) bool. Returns (t, u, v, idx int32, hit)."""
-        walk = bvh8_walk if self.walk == "bvh8" else bvh4_walk
-        return walk(self.table, org, d, t_max0, active, self.node_end,
-                    self.stride)
+        kernel of the table's kind, bvh8_walk or bvh4_walk, the latter
+        adding to walk_counts; its plain version for CPU tensors). org, d
+        (N, 3) f32; t_max0 (N,) f32; active (N,) bool. Returns (t, u, v,
+        idx int32, hit)."""
+        if self.walk == "bvh8":
+            return bvh8_walk(self.table, org, d, t_max0, active,
+                             self.node_end, self.stride)
+        return bvh4_walk(self.table, org, d, t_max0, active, self.node_end,
+                         self.stride, self.walk_counts)
 
     def leaf_histogram(self) -> dict:
         """leaf size -> count (the reference's leaf_length_histogram)."""

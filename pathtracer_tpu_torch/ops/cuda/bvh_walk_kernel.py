@@ -420,9 +420,11 @@ def bvh4_walk_cached_plain(table, org, d, t_max0, active, node_end: int,
 
 
 def _launch(what, entry, lanes_per_ray, phases, table, org, d, t_max0,
-            active, node_end, stride):
+            active, node_end, stride, extra=()):
     """Check a walk's arguments for its kernel and launch it through
-    `entry` (pt_bvh8_walk or pt_bvh4_walk). Returns (t, u, v, idx, hit)."""
+    `entry` (pt_bvh8_walk or pt_bvh4_walk; `extra`: the entry's arguments
+    after the hit pointer, before the lane count). Returns (t, u, v, idx,
+    hit)."""
     _check(what, table, org, d, t_max0, active, contiguous=True)
     if table.data_ptr() % 16:
         raise ValueError(f"{what}: table must be 16-byte aligned (the "
@@ -441,7 +443,8 @@ def _launch(what, entry, lanes_per_ray, phases, table, org, d, t_max0,
         table.data_ptr(), phases * node_end, stride,
         phases * (table.shape[0] - 1), org.data_ptr(), d.data_ptr(),
         t_max0.data_ptr(), active.data_ptr(), t.data_ptr(), u.data_ptr(),
-        v.data_ptr(), idx.data_ptr(), hit.data_ptr(), n, lanes_per_ray,
+        v.data_ptr(), idx.data_ptr(), hit.data_ptr(), *extra, n,
+        lanes_per_ray,
         torch.cuda.current_stream(org.device).cuda_stream)
     _build.check(lib, err, what)
     return t, u, v, idx, hit
@@ -470,28 +473,50 @@ def bvh8_walk(table, org, d, t_max0, active, node_end: int, stride: int):
 bvh8_walk.launches = 0
 
 
-def bvh4_walk(table, org, d, t_max0, active, node_end: int, stride: int):
+def bvh4_walk(table, org, d, t_max0, active, node_end: int, stride: int,
+              counts):
     """Nearest mesh hit of N rays no farther than t_max0 over the BVH4
     walk table (R, 32) (the JAX MeshBVH.intersect of walk="bvh4"). org, d
     (N, 3) f32; t_max0 (N,) f32; active (N,) bool; node_end and stride in
     rows. Returns (t, u, v, idx int32, hit), each (N,).
 
+    counts is a (2,) int64 tensor on the rays' device that the walk adds
+    to: [0] the active rays walked, [1] their table loads (the kernel's
+    loop iterations, bvh4_walk_cached_plain's table loads; the plain walk
+    on the CPU counts none).
+
     CPU tensors run bvh4_walk_plain; CUDA tensors launch csrc/bvh4_walk.cu
     with BVH4_LANES_PER_RAY lanes per ray (counted in
     `bvh4_walk.launches`); anything else raises."""
     if org.device.type == "cpu":
-        return bvh4_walk_plain(table, org, d, t_max0, active, node_end,
-                               stride)
+        out = bvh4_walk_plain(table, org, d, t_max0, active, node_end,
+                              stride)
+        _check_counts(counts, org.device)
+        counts[0] += active.sum()
+        return out
     if org.device.type != "cuda":
         raise ValueError(f"bvh4_walk: no kernel for {org.device}")
+    _check_counts(counts, org.device)
     k = _build.load().pt_bvh4_cache_rows()
     if k != BVH4_CACHE_ROWS:
         raise RuntimeError(f"bvh4_walk: the kernel's path cache holds {k} "
                            f"rows, BVH4_CACHE_ROWS says {BVH4_CACHE_ROWS}")
     out = _launch("bvh4_walk", "pt_bvh4_walk", BVH4_LANES_PER_RAY, 4, table,
-                  org, d, t_max0, active, node_end, stride)
+                  org, d, t_max0, active, node_end, stride,
+                  (counts.data_ptr(),))
     bvh4_walk.launches += 1
     return out
+
+
+def _check_counts(counts, device):
+    """bvh4_walk's counters: a contiguous (2,) int64 tensor on `device`."""
+    if not (isinstance(counts, torch.Tensor) and counts.dtype == torch.int64
+            and tuple(counts.shape) == (2,) and counts.device == device
+            and counts.is_contiguous()):
+        got = (f"{tuple(counts.shape)} {counts.dtype} {counts.device}"
+               if isinstance(counts, torch.Tensor) else repr(counts))
+        raise ValueError(f"bvh4_walk: counts must be a contiguous (2,) "
+                         f"int64 tensor on {device}, got {got}")
 
 
 bvh4_walk.launches = 0

@@ -190,12 +190,14 @@ def test_plain_bvh4_walk_lanes_are_independent(soup_meshes):
 def test_bvh4_walk_wrapper_refuses_malformed_input(soup_meshes):
     _, m = soup_meshes
     org = torch.zeros(8, 3)
+    counts = torch.zeros(2, dtype=torch.int64)
     with pytest.raises(ValueError, match="bvh4_walk"):  # t_max0 too short
         bw.bvh4_walk(m.table, org, org, torch.zeros(7),
-                     torch.ones(8, dtype=torch.bool), m.node_end, m.stride)
+                     torch.ones(8, dtype=torch.bool), m.node_end, m.stride,
+                     counts)
     with pytest.raises(ValueError, match="bvh4_walk"):  # active not bool
         bw.bvh4_walk(m.table, org, org, torch.zeros(8), torch.ones(8),
-                     m.node_end, m.stride)
+                     m.node_end, m.stride, counts)
 
 
 @pytest.mark.parametrize("walk", ["octant", "skiplink", "bvh2"])

@@ -43,7 +43,11 @@ BVH4_LANES_PER_RAY > 1. The BVH4 walk reads node rows at phase > 0 from a
 per-ray path cache and a leaf's pair rows two at a time, four triangles
 against one best: its tests add a soup of duplicated triangles (exact
 ties in t inside a leaf, leaves of 3-4 pair rows), axis-aligned rays and
-lanes that end exactly at t_max0.
+lanes that end exactly at t_max0. It always counts (counts is required):
+its outputs stay equal to the plain walk's, and its sums of the walked
+rays and table loads equal the active lanes and the emulation's loads
+(bvh4_walk_cached_plain); a render on a BVH4 mesh reads them once an
+image, the same for an eager and a replayed first pass.
 
 The two-kernel bounce (intersect_state, shade_state), the clustered sphere
 kernel and the raster-grid gather must equal their plain versions exactly;
@@ -510,6 +514,11 @@ def test_ppm_wrappers_refuse_malformed_input(dev):
                               .view(16, 128), 0.1)
 
 
+def _counts(dev):
+    """bvh4_walk's counters, zeroed."""
+    return torch.zeros(2, dtype=torch.int64, device=dev)
+
+
 def _soup(dev, n=150, seed=5, walk="bvh8"):
     """A random triangle soup as a MeshBVH on the card."""
     from pathtracer_tpu_torch.ops.bvh import MeshBVH
@@ -617,7 +626,7 @@ def test_bvh4_walk_kernel_matches_plain(dev):
     assert bool(m.table[:m.node_end, :24].isnan().any())  # pad boxes
     args, n = _soup_rays(dev, m)
     before = bw.bvh4_walk.launches
-    got = bw.bvh4_walk(m.table, *args, m.node_end, m.stride)
+    got = bw.bvh4_walk(m.table, *args, m.node_end, m.stride, _counts(dev))
     assert bw.bvh4_walk.launches == before + 1
     want = bw.bvh4_walk_plain(m.table, *args, m.node_end, m.stride)
     for g, w in zip(got, want):
@@ -691,7 +700,7 @@ def test_bvh4_walk_kernel_matches_plain_on_ties_and_big_leaves(dev, case):
     assert int(rows.min()) == (copies[0] + 1) // 2 and int(rows.max()) == 4
     if case == "axis_aligned":
         args = [x[2048:] for x in args]
-    got = bw.bvh4_walk(m.table, *args, m.node_end, m.stride)
+    got = bw.bvh4_walk(m.table, *args, m.node_end, m.stride, _counts(dev))
     want = bw.bvh4_walk_plain(m.table, *args, m.node_end, m.stride)
     for g, w in zip(got, want):
         assert torch.equal(g, w), (g.float() - w.float()).abs().max()
@@ -700,6 +709,66 @@ def test_bvh4_walk_kernel_matches_plain_on_ties_and_big_leaves(dev, case):
     if case != "axis_aligned":
         at = (args[2] == got[0]) & args[3]  # ends exactly at its limit
         assert int(at.sum()) > 50 and not bool(hit[at].any())
+
+
+@pytest.mark.parametrize("case", ["soup", "ties", "big_leaves"])
+def test_bvh4_walk_counters_equal_the_emulation(dev, case):
+    """The BVH4 walk with its counters on: the outputs equal
+    bvh4_walk_plain's bit for bit, counts[0] adds the active lanes and
+    counts[1] the table loads bvh4_walk_cached_plain counts, at each call
+    (a second call doubles them)."""
+    from pathtracer_tpu_torch.ops.cuda import bvh_walk_kernel as bw
+
+    if case == "soup":
+        m = _soup(dev, walk="bvh4")
+        args = _soup_rays(dev, m)[0]
+    else:
+        m, args = _tie_soup(dev, "bvh4", (1, 8) if case == "ties"
+                            else (5, 8))
+    walk = (m.table, *args, m.node_end, m.stride)
+    counts = _counts(dev)
+    got = bw.bvh4_walk(*walk, counts)
+    want = bw.bvh4_walk_plain(*walk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+    emu = bw.bvh4_walk_cached_plain(*walk)
+    for g, w in zip(got, emu[:5]):
+        assert torch.equal(g, w)
+    loads = int(emu[5][:, 0].sum())
+    active = int(args[3].sum())
+    assert counts.tolist() == [active, loads]
+    assert loads > active  # each walked ray loads its root, and more
+    bw.bvh4_walk(*walk, counts)
+    assert counts.tolist() == [2 * active, 2 * loads]
+
+
+def test_bvh4_render_counts_each_image_walk(dev, tmp_path, monkeypatch):
+    """The tiny ganesha on BVH4 through make_render_fn, an eager first
+    pass and replayed passes: each image's closing read gives pt.walk_rays
+    (every live lane past bounce 0) and pt.walk_loads, the same for the
+    first image (warm-up and capture) and a replayed one; the mesh's
+    counters hold the last image's."""
+    from pathtracer_tpu_torch.models import ganesha
+    from pathtracer_tpu_torch.ops.bvh import MeshBVH
+    from pathtracer_tpu_torch.utils import tracing
+
+    monkeypatch.setattr(ganesha, "MeshBVH", lambda *a, **k: MeshBVH(
+        *a, **dict(k, walk="bvh4")))
+    scene, cam, bg, mesh = _tiny_ganesha_pt(dev, tmp_path)
+    render = make_render_fn(cam, bg, 64, 64, 2, 8, dev, mesh=mesh)
+    tracing.reset()
+    try:
+        shots = [render(scene)[1] for _ in range(3)]
+        recs = tracing.images()
+    finally:
+        tracing.reset()
+    assert shots[0] == shots[1] == shots[2]
+    assert [r.counts["pt.graph_passes"] for r in recs] == [1, 2, 2]
+    rays = shots[0] - 64 * 64 * 2
+    assert [r.counts["pt.walk_rays"] for r in recs] == [rays] * 3
+    loads = [r.counts["pt.walk_loads"] for r in recs]
+    assert loads[0] == loads[1] == loads[2] > rays
+    assert mesh.walk_counts.tolist() == [rays, loads[0]]
 
 
 def test_bvh8_walk_kernel_matches_plain_on_ties(dev):
@@ -769,7 +838,7 @@ def test_bvh4_walk_kernel_matches_plain_on_photon_bounces(dev, monkeypatch):
     for org, d, t_max0, active in walk_in:
         args = (mesh.table, org, d, t_max0, active, mesh.node_end,
                 mesh.stride)
-        got = bw.bvh4_walk(*args)
+        got = bw.bvh4_walk(*args, _counts(dev))
         want = bw.bvh4_walk_plain(*args)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
         assert int(got[4].sum()) > 0
@@ -1257,11 +1326,12 @@ def test_mesh_wrappers_refuse_malformed_input(dev):
     m4 = _soup(dev, walk="bvh4")
     with pytest.raises(ValueError, match="bvh4_walk"):  # rays on the CPU
         bw.bvh4_walk(m4.table, org.cpu(), org, torch.zeros(8, device=dev),
-                     on, m4.node_end, m4.stride)
+                     on, m4.node_end, m4.stride, _counts(dev))
     shifted = torch.zeros(m4.table.numel() + 1, device=dev)[1:]
     with pytest.raises(ValueError, match="aligned"):  # table off by 4 B
         bw.bvh4_walk(shifted.view_as(m4.table).copy_(m4.table), org, org,
-                     torch.zeros(8, device=dev), on, m4.node_end, m4.stride)
+                     torch.zeros(8, device=dev), on, m4.node_end, m4.stride,
+                     _counts(dev))
     table = torch.zeros(16, 256, device=dev)
     start = torch.arange(2, dtype=torch.int32, device=dev)
     d = torch.zeros(32 * 32, 3, device=dev)

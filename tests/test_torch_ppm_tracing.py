@@ -127,13 +127,15 @@ def test_no_host_read_per_iteration(ply):
 
 def test_path_traced_records_are_unchanged(ply):
     """build_pt records one build.scene span of the set-up (it moved into
-    build, which build_pt calls), and a path-traced mesh image's record
+    build, which build_pt calls), with MeshBVH's build.mesh_bvh span
+    inside it, and a path-traced mesh image's record
     holds the pt.* spans and counters it always held, with trace's count
     of its bounces (pt.mesh_bounces; on the CPU no pt.fused_bounces), no
     ppm.* one."""
     with profile(activities=[ProfilerActivity.CPU]):
         scene, cam, bg, mesh = ganesha.build_pt(ply, 1.0, CPU)
-    assert [n for n, _, _, _ in tracing.setup().intervals] == ["build.scene"]
+    assert [(n, p) for n, p, _, _ in tracing.setup().intervals] == [
+        ("build.mesh_bvh", "build.scene"), ("build.scene", None)]
     render = make_render_fn(cam, bg, W, H, 2, 3, CPU, mesh=mesh)
     render(scene)
     render(scene)

@@ -15,18 +15,22 @@ table's range), the path-traced bounces 1 and 3; beside each path-traced
 bounce-1 set three orders of it by the plain walk's steps per lane: the
 LONGEST longest rays packed eight to a warp, the same rays one to a warp,
 and every ray longest first. This checkout records them once, with its
-kernel's outputs (held equal to the plain walk's) and its plain emulation's
-table loads, under pathtracer_tpu_torch/_build/ (RAYS). Then each checkout, this
-one first, times the sets in the order given and again in reverse, and
-must give the recorded outputs bit for bit. Prints a line a set with every
-checkout's device ms (chip_smoke.held_ms) and CUDA-event ms
-(chip_smoke.time_ms), medians and each turn, then nvidia-smi's name and
-power limit.
+kernel's outputs (held equal to the plain walk's), its counters (held
+equal to the active lanes and the plain emulation's table loads) and the
+emulation's steps, under pathtracer_tpu_torch/_build/ (RAYS). Then each
+checkout, this one first, times the sets in the order given and again in
+reverse, and must give the recorded outputs bit for bit; a checkout whose
+wrapper takes the walk's counters (`counts`) is timed with them on, and
+must count as recorded.
+Prints a line a set with every checkout's device ms (chip_smoke.held_ms)
+and CUDA-event ms (chip_smoke.time_ms), medians and each turn, then
+nvidia-smi's name and power limit.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -116,14 +120,19 @@ def record() -> None:
     for name, (m, rays) in sets.items():
         args = (m.table, *rays, m.node_end, m.stride)
         want, fields, w_bound = cs.walk_work(torch, bw, args, walk="bvh4")
-        got = bw.bvh4_walk(*args)
+        walked = torch.zeros(2, dtype=torch.int64, device=dev)
+        got = bw.bvh4_walk(*args, walked)
         cs.require(all(torch.equal(g, w) for g, w in zip(got, want)),
                    f"{name}: bvh4_walk differs from its plain version")
         counts = cs.cache_counts(torch, bw, args, want)
+        walked = walked.tolist()
+        cs.require(walked == [int(rays[3].sum()), counts["loads"]],
+                   f"{name}: bvh4_walk counted {walked}, want the active "
+                   f"lanes and the emulation's {counts['loads']} loads")
         out["sets"][name] = dict(
             table="ganesha" if m is mesh else "sub4",
             rays=[x.cpu() for x in rays], node_end=m.node_end,
-            stride=m.stride, want=[x.cpu() for x in want],
+            stride=m.stride, want=[x.cpu() for x in want], walked=walked,
             info=dict(lanes=rays[0].shape[0],
                       steps_mean=fields["steps_mean"],
                       steps_max=fields["steps_max"],
@@ -150,15 +159,25 @@ def time_sets(root: str) -> None:
     print(ptxas(_build))
     rec = torch.load(RAYS, weights_only=True)
     tables = {k: t.to(dev) for k, t in rec["tables"].items()}
+    # a wrapper with the walk's counters takes them on, as MeshBVH does
+    counted = "counts" in inspect.signature(bw.bvh4_walk).parameters
+    extra = ((torch.zeros(2, dtype=torch.int64, device=dev),) if counted
+             else ())
     res = {}
     for name, s in rec["sets"].items():
         args = (tables[s["table"]], *(x.to(dev) for x in s["rays"]),
-                s["node_end"], s["stride"])
+                s["node_end"], s["stride"], *extra)
+        if counted:
+            extra[0].zero_()
         got = bw.bvh4_walk(*args)
         torch.cuda.synchronize()
         cs.require(all(torch.equal(g.cpu(), w) for g, w in
                        zip(got, s["want"])),
                    f"{root}: bvh4_walk differs on {name}")
+        if counted:
+            cs.require(extra[0].tolist() == s["walked"],
+                       f"{root}: bvh4_walk counted {extra[0].tolist()} on "
+                       f"{name}, want {s['walked']}")
         res[name] = [cs.held_ms(torch, lambda: bw.bvh4_walk(*args)),
                      cs.time_ms(torch, lambda: bw.bvh4_walk(*args))]
     print(json.dumps(res))
